@@ -8,18 +8,26 @@ Phases (the first failure exits non-zero; no phase is caught):
   2. build: the CUDA kernels (csrc/*.cu, nvcc, sm_90a)
   3. kernels: K1-K4 against their plain torch versions on one real
      262144-read block (B = 262144, L = 128, T = 2048, N = 16384; K4 with
-     D = 4 at order 1, and at orders 2 and 3), exact equality; ms per
-     launch of both, timed with CUDA events
+     D = 4 at order 1, and at orders 2 and 3), and K5/K6 at the shapes of
+     a data-parallel group of the file's first 4 blocks (K6: 134,217,728
+     indices into 286,136 cells; K5: T = 2048, N = 65536), exact
+     equality; ms per launch of both, timed with CUDA events
   4. main path: compress a 1,148,576-read synthetic FASTQ on the card
      (single-end, lossless, every stage on the device, order 1, gz),
-     decompress it in keep-order, require the input bytes back and every
-     kernel launched
+     decompress it in keep-order, require the input bytes back and K1-K4
+     launched
   5. card vs CPU: a ragged file with N bases compressed on the card and
      with the plain torch versions on the CPU must give identical
      triplets (tests pin the CPU path to scalce_tpu byte for byte)
+  6. data-parallel path on the main file: ShardedEncoder over every card
+     in groups of 4 blocks (4 per card on one card: one group and a
+     tail) must give the single-device encoder's payloads, and the
+     --data-parallel driver (one block per card) phase 4's triplet; K5
+     and K6 must have run
 
 The line before the last is the card's name and power limit; the one
-before that is a JSON object with one entry per kernel; the last line is
+before that is a JSON object with one entry per kernel (``launches``:
+phase 4's count for K1-K4, phase 6's for K5 and K6); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -93,18 +101,22 @@ def write_fastq(path: str, n_reads: int, **kw) -> bytes:
     return data
 
 
-def check_kernels(block, dev, kernels) -> dict:
+def check_kernels(blocks, dev, kernels) -> dict:
     """Phase 3: each kernel against its plain version at the slice's
-    shapes, from one real block."""
+    shapes: K1-K4 from one real block, K5 and K6 from a data-parallel
+    group of ``blocks``."""
     from scalce_tpu.config import Config
     from scalce_tpu_torch.models import entropy
-    from scalce_tpu_torch.ops import (core_match, core_rank, hist, rans,
-                                      rans_decode, rans_encode)
+    from scalce_tpu_torch.ops import (core_match, core_rank, hist,
+                                      histogram, rans, rans_decode,
+                                      rans_encode, rans_encode_flat)
     from scalce_tpu_torch.ops.bitops import unpack_bases_u32
+    from scalce_tpu_torch.parallel import mesh
     from scalce_tpu_torch.pipeline import encode
     from scalce_tpu_torch.streams import qualities
     cfg = Config(inputs=("-",), **SLICE)
     enc = encode.BlockEncoder(cfg, dev)
+    block = blocks[0]
     pre = enc.upload(block)
     k, seed = cfg.core_k, cfg.dict_seed
     B, L = block.seq.shape
@@ -155,6 +167,28 @@ def check_kernels(block, dev, kernels) -> dict:
                      lambda *a: (rans_decode.decode_scan_plain(*a),),
                      dec_args, 10, 1)
 
+    # the data-parallel group: stage 1 of every block, then the stacked
+    # (ctx, sym) cells (K6) and the stacked tables' (f, cum) (K5)
+    _, _, _, gsym, gctx, gcounts = mesh.stage1(
+        mesh.upload_blocks(blocks, dev), [b.n_reads for b in blocks],
+        k, seed, 1)
+    C = qualities.n_contexts(1)
+    gctx = qualities.stacked_ctx(gctx, 1).reshape(-1)
+    gsym = gsym.reshape(-1)
+    n_cells = len(blocks) * C * qualities.N_SYMS
+    results["K6"] = (lambda *a: (histogram.histogram(*a),),
+                     lambda *a: (histogram.histogram_plain(*a),),
+                     (gctx * qualities.N_SYMS + gsym, n_cells), 20, 5)
+    gfreq, gcum = entropy.device_normalize(gcounts, C, qualities.N_SYMS)
+    f_all, c_all = rans.gather_tables(gsym, gctx, gfreq.reshape(-1),
+                                      gcum.reshape(-1), qualities.N_SYMS, T)
+    del gsym, gctx
+    results["K5"] = (rans_encode_flat.encode_scan_flat,
+                     rans_encode_flat.encode_scan_flat_plain,
+                     (f_all, c_all), 10, 1)
+    say(f"group of {len(blocks)} blocks: K6 S = {results['K6'][2][0].numel()}"
+        f" into {n_cells} cells; K5 [T, N] = {list(f_all.shape)}")
+
     out = {}
     for name, (kernel, plain, a, iters, plain_iters) in results.items():
         got = kernel(*a)
@@ -201,17 +235,78 @@ def triplet(prefix: str) -> list:
     return out
 
 
+def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
+                        t_single: float) -> dict:
+    """Phase 6: the data-parallel path on the main file; returns its
+    launch counts."""
+    import scalce_tpu_torch
+    from scalce_tpu.config import Config
+    from scalce_tpu.io import fastq
+    from scalce_tpu_torch.parallel import mesh
+    from scalce_tpu_torch.pipeline.encode import BlockEncoder
+    cfg = Config(inputs=(src,), **SLICE)
+    blocks = list(fastq.iter_blocks(src, cfg.block_reads, cfg.max_read_len))
+    t0 = time.monotonic()
+    want = [BlockEncoder(cfg, "cuda").encode_block(b).payloads
+            for b in blocks]
+    torch.cuda.synchronize()
+    t_one = time.monotonic() - t0
+
+    for _, fn in kernels.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    senc = mesh.ShardedEncoder(
+        cfg, "cuda", group=max(1, 4 // torch.cuda.device_count()))
+    got = []
+    for i in range(0, len(blocks), senc.D):
+        got += [eb.payloads for eb in senc.encode_blocks(blocks[i:i + senc.D])]
+    torch.cuda.synchronize()
+    t_group = time.monotonic() - t0
+    if got != want:
+        raise AssertionError("data-parallel payloads != single-device "
+                             "payloads")
+    n_blocks = len(blocks)
+    del blocks, got, want
+    t0 = time.monotonic()
+    scalce_tpu_torch.compress(Config(inputs=(src,), output=os.path.join(
+        tmp, "dp"), data_parallel=True, **SLICE), "cuda")
+    torch.cuda.synchronize()
+    t_dp = time.monotonic() - t0
+    launches = {name: fn.launches for name, (_, fn) in kernels.items()}
+    if triplet(os.path.join(tmp, "dp")) != triplet(os.path.join(tmp,
+                                                                 "main")):
+        raise AssertionError("--data-parallel triplet != phase 4's")
+    if not (launches["K1"] and launches["K5"] and launches["K6"]):
+        raise AssertionError(f"K1, K5 or K6 never ran on the data-parallel "
+                             f"path: {launches}")
+    mb = os.path.getsize(src) / 1e6
+    say(f"data-parallel on {[str(d) for d in senc.mesh]}: the payloads of "
+        f"{n_blocks} blocks (groups of {senc.D}) equal the single-device "
+        f"encoder's; the --data-parallel triplet equals phase 4's; "
+        f"launches {launches}")
+    say(f"encode of the parsed file: single-device {t_one:.3f} s, "
+        f"{senc.group} blocks per card {t_group:.3f} s | {smi}")
+    say(f"compress: single-device {t_single:.3f} s = {mb / t_single:.2f} "
+        f"MB/s, --data-parallel (1 block per card) {t_dp:.3f} s = "
+        f"{mb / t_dp:.2f} MB/s | {smi}")
+    return launches
+
+
 def main() -> int:
     smi = card()                                              # phase 1
-    from scalce_tpu_torch.ops import (_cuda, core_rank, hist, rans_decode,
-                                      rans_encode)
+    from scalce_tpu_torch.ops import (_cuda, core_rank, hist, histogram,
+                                      rans_decode, rans_encode,
+                                      rans_encode_flat)
     kind = torch.cuda.get_device_name(0)
     say(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
     #: name -> (module with SOURCE / REPLACES, wrapper with .launches)
     kernels = {"K1": (core_rank, core_rank.rank_argmin),
                "K2": (hist, hist.hist_ctx),
                "K3": (rans_encode, rans_encode.encode_scan),
-               "K4": (rans_decode, rans_decode.decode_scan)}
+               "K4": (rans_decode, rans_decode.decode_scan),
+               "K5": (rans_encode_flat, rans_encode_flat.encode_scan_flat),
+               "K6": (histogram, histogram.histogram)}
+    main_path = ("K1", "K2", "K3", "K4")
 
     t0 = time.monotonic()                                       # phase 2
     _cuda.library()
@@ -225,10 +320,10 @@ def main() -> int:
         from scalce_tpu.io import fastq
         blocks = fastq.iter_blocks(src, SLICE["block_reads"],
                                    SLICE["max_read_len"])
-        block = next(blocks)
+        group = [next(blocks) for _ in range(4)]
         blocks.close()
-        measured = check_kernels(block, dev, kernels)           # phase 3
-        del block
+        measured = check_kernels(group, dev, kernels)           # phase 3
+        del group
 
         for _, fn in kernels.values():                          # phase 4
             fn.launches = 0
@@ -241,7 +336,7 @@ def main() -> int:
             output=os.path.join(tmp, "main_out"), keep_order=True,
             qual_on_device=True), "cuda")
         t_d = time.monotonic() - t0
-        launches = {name: fn.launches for name, (_, fn) in kernels.items()}
+        launches = {name: kernels[name][1].launches for name in main_path}
         with open(os.path.join(tmp, "main_out.fastq"), "rb") as f:
             if f.read() != data:
                 raise AssertionError("keep-order decompress != input")
@@ -267,6 +362,9 @@ def main() -> int:
                                  f"{[(n, len(b)) for n, b in cpu]}")
         say(f"card == CPU triplets on the ragged file ({len(gpu)} files; "
             f"card {t_gpu:.2f} s, CPU {t_cpu:.2f} s)")
+
+        dp = check_data_parallel(src, tmp, kernels, smi, t_c)   # phase 6
+        launches.update(K5=dp["K5"], K6=dp["K6"])
 
     print(json.dumps({"kernels": [
         {"name": f"{name} {fn.__name__}", "route": "cuda",

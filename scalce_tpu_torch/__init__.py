@@ -8,11 +8,13 @@ Config, so triplets cross-decode between the two packages.
 
 Layout (counterparts of ``scalce_tpu``'s subpackages):
   ops/        plain torch ops and the kernel wrappers (K1 core_rank,
-              K2 hist, K3 rans_encode, K4 rans_decode)
+              K2 hist, K3 rans_encode, K4 rans_decode, K5
+              rans_encode_flat, K6 histogram)
   csrc/       the hand-written CUDA kernels (sm_90a), built at first use
   models/     rANS table normalization
   streams/    sequence and quality payload codecs
   pipeline/   block encoder/decoder and the compress/decompress drivers
+  parallel/   data parallelism over the devices of one host
   convert     arrays across the two packages
   cli         ``python -m scalce_tpu_torch``
 

@@ -3,11 +3,14 @@
   python -m scalce_tpu_torch input.fastq -o out                 compress
   python -m scalce_tpu_torch -d out.00.scalcen -o result        decompress
 
-The parser is ``scalce_tpu.cli.build_parser``; its defaults are moved to
-the ported slice (device placement of every stage, quality context
-order 1, the best installed byte backend), so the bare command runs.
-Flags outside the slice raise NotImplementedError naming the
-ROADMAP.md item that will add them.
+``--data-parallel`` compresses in groups of blocks over every visible
+card (``--device cuda``), or over the one device that ``cuda:N`` or
+``cpu`` names; the triplet is the same.  The parser is
+``scalce_tpu.cli.build_parser``; its defaults are moved to the ported
+slice (device placement of every stage, quality context order 1, the
+best installed byte backend), so the bare command runs.  Flags outside
+the slice raise NotImplementedError naming the ROADMAP.md item that will
+add them.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ def build_parser():
     p.prog = "scalce_tpu_torch"
     p.description = "PyTorch + CUDA port of scalce_tpu"
     p.add_argument("--device", default="cuda",
-                   help="torch device: cuda (default), cuda:N, or cpu "
-                        "(plain torch versions of every kernel)")
+                   help="torch device: cuda (default; every visible card "
+                        "under --data-parallel), cuda:N, or cpu (plain "
+                        "torch versions of every kernel)")
     # delta_device None: the device delta match when compressing, the
     # host delta walk when decompressing (the flag names both)
     p.set_defaults(core_placement="device", delta_device=None,
@@ -37,7 +41,9 @@ def build_parser():
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.merge_hosts:
-        raise NotImplementedError("--merge-hosts: ROADMAP.md Queue 1 item 16")
+        raise NotImplementedError(
+            "--merge-hosts (multi-host, n_hosts > 1): ROADMAP.md Queue 1 "
+            "item 16")
     if args.profile:
         raise NotImplementedError("--profile: ROADMAP.md Queue 1 item 18")
     if args.delta_device is None:

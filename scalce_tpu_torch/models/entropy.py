@@ -21,13 +21,16 @@ from scalce_tpu_torch.ops.rans import M_TOTAL, PROB_BITS
 
 def device_normalize(counts: torch.Tensor, n_ctx: int, n_syms: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Histogram -> (freq u32 [C, S], cum u32 [C, S]) in int64.
+    """Histogram ``[..., C*S]`` -> (freq u32 ``[..., C, S]``, cum u32
+    ``[..., C, S]``) in int64; a leading axis holds several blocks'
+    histograms, each row normalized on its own.
 
     Reserve 1 per present symbol, scale the rest by
     ``floor((c * scale) * bias)`` with ``bias`` the f32 constant
     ``1 - 1e-5`` (so the remainder d >= 0), add d to the most frequent
     symbol (first on ties); empty rows put all mass on symbol 0."""
-    ci = counts.reshape(n_ctx, n_syms).to(torch.int32)
+    out_shape = counts.shape[:-1] + (n_ctx, n_syms)
+    ci = counts.reshape(-1, n_syms).to(torch.int32)
     nz = ci > 0
     nnz = nz.sum(dim=1, dtype=torch.int32)
     total = ci.sum(dim=1, dtype=torch.int32)
@@ -40,12 +43,13 @@ def device_normalize(counts: torch.Tensor, n_ctx: int, n_syms: int
     sym = torch.arange(n_syms, dtype=torch.int64, device=ci.device)
     top = torch.where(ci == ci.max(dim=1, keepdim=True).values, sym,
                       n_syms).min(dim=1).values
-    rows = torch.arange(n_ctx, device=ci.device)
+    rows = torch.arange(ci.shape[0], device=ci.device)
     f[rows, top] += torch.where(nnz > 0, d, 0)
     empty = (nnz == 0)[:, None]
     f = torch.where(empty, torch.where(sym == 0, M_TOTAL, 0), f)
     f = f.to(torch.int64)
-    return f, torch.cumsum(f, dim=1) - f
+    return f.reshape(out_shape), (torch.cumsum(f, dim=1) - f).reshape(
+        out_shape)
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
+_L = ctypes.c_longlong
 #: C entry points -> argument types (the stream is always last)
 _SIGNATURES = {
     "scalce_core_rank": [_P, _P, _I, _I, _I, _U] + [_P] * 6 + [_P],
@@ -44,6 +45,8 @@ _SIGNATURES = {
     "scalce_rans_encode": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "scalce_rans_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P],
+    "scalce_histogram": [_P, _L, _I, _P, _P],
+    "scalce_rans_encode_flat": [_P, _P, _I, _I, _P, _P, _P, _P],
 }
 
 

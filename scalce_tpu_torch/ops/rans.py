@@ -3,9 +3,11 @@
 A block's S symbols are split into ``N = S // T`` lanes, lane n owning
 the contiguous span ``[n*T, (n+1)*T)``; every lane is an independent u32
 rANS coder with 12-bit probabilities and 16-bit renormalization words.
-These are the plain versions: the hot scans are kernels K3
-(``ops/rans_encode.py``) and K4 (``ops/rans_decode.py``).  The TPU's
-two-step f32 divide and lax.scan formulation are not carried over —
+The generic coder API (:func:`rans_encode` over any flat table,
+:func:`context_histogram`) runs kernels K5 (``ops/rans_encode_flat.py``)
+and K6 (``ops/histogram.py``); the quality stream's table-resident scans
+are K3 (``ops/rans_encode.py``) and K4 (``ops/rans_decode.py``).  The
+TPU's two-step f32 divide and lax.scan formulation are not carried over —
 torch divides int64 exactly.
 """
 
@@ -15,11 +17,25 @@ from typing import Callable, Tuple
 
 import torch
 
+from scalce_tpu_torch.ops.histogram import histogram
+
 PROB_BITS = 12
 M_TOTAL = 1 << PROB_BITS
 RANS_L = 1 << 16                      # state lower bound
-_MASK16 = 0xFFFF
 _MASK12 = M_TOTAL - 1
+
+
+def gather_tables(sym: torch.Tensor, ctx: torch.Tensor,
+                  freq_lut: torch.Tensor, cum_lut: torch.Tensor,
+                  n_syms: int, T: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each symbol's (f, cum) from flat ``[C * n_syms]`` tables (row =
+    ctx), as u32 ``[T, N]`` in data order: lane n's step t at ``[t, n]``
+    (sym, ctx: u32 ``[N*T]``, lane-major)."""
+    N = sym.shape[0] // T
+    idx = ctx * n_syms + sym
+    return (freq_lut[idx].reshape(N, T).T.contiguous(),
+            cum_lut[idx].reshape(N, T).T.contiguous())
 
 
 def rans_encode(sym: torch.Tensor, ctx: torch.Tensor,
@@ -31,23 +47,11 @@ def rans_encode(sym: torch.Tensor, ctx: torch.Tensor,
     sym, ctx: u32 ``[S]`` (int64), lane-major.  freq_lut, cum_lut: u32
     ``[C * n_syms]`` tables (row = ctx).  Returns ``(states u32 [N],
     words u16 [T, N] (int32), emits bool [T, N])`` with the time axis in
-    DECODE order.  The encoder walks t = T-1 .. 0."""
-    N = sym.shape[0] // T
-    idx = ctx * n_syms + sym
-    f_all = freq_lut[idx].reshape(N, T)
-    c_all = cum_lut[idx].reshape(N, T)
-    x = torch.full((N,), RANS_L, dtype=torch.int64, device=sym.device)
-    words = torch.empty((T, N), dtype=torch.int32, device=sym.device)
-    emits = torch.empty((T, N), dtype=torch.bool, device=sym.device)
-    for t in range(T - 1, -1, -1):
-        f = f_all[:, t]
-        # renorm: emit the low 16 bits while x >= f << 20
-        emit = (x >> 20) >= f
-        words[t] = (x & _MASK16).to(torch.int32)
-        emits[t] = emit
-        x = torch.where(emit, x >> 16, x)
-        x = ((x // f) << PROB_BITS) + x % f + c_all[:, t]
-    return x, words, emits
+    DECODE order: the table gather, then kernel K5."""
+    # K5's module imports this one for the coder constants
+    from scalce_tpu_torch.ops.rans_encode_flat import encode_scan_flat
+    return encode_scan_flat(*gather_tables(sym, ctx, freq_lut, cum_lut,
+                                           n_syms, T))
 
 
 def compact_emissions(words: torch.Tensor, emits: torch.Tensor
@@ -63,6 +67,13 @@ def compact_emissions(words: torch.Tensor, emits: torch.Tensor
     out = torch.zeros((N, T + 1), dtype=words.dtype, device=words.device)
     out.scatter_(1, dst, words.T)
     return out[:, :T].contiguous(), et.sum(dim=1, dtype=torch.int32)
+
+
+def context_histogram(sym: torch.Tensor, ctx: torch.Tensor, n_ctx: int,
+                      n_syms: int) -> torch.Tensor:
+    """Histogram of (ctx, sym) pairs -> i32 ``[n_ctx * n_syms]`` (kernel
+    K6 over the flat cell ``ctx * n_syms + sym``)."""
+    return histogram(ctx * n_syms + sym, n_ctx * n_syms)
 
 
 def cum_rows(freq: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,7 @@ import torch
 
 from scalce_tpu_torch.ops import _cuda, rans
 from scalce_tpu_torch.ops.bitops import from_u32_bits, to_u32_bits
+from scalce_tpu_torch.ops.rans_encode_flat import encode_scan_flat_plain
 
 SOURCE = "scalce_tpu_torch/csrc/rans_encode.cu"
 REPLACES = "scalce_tpu/ops/rans_pallas.py:164"
@@ -20,9 +21,9 @@ REPLACES = "scalce_tpu/ops/rans_pallas.py:164"
 def encode_scan_plain(sym: torch.Tensor, ctx: torch.Tensor,
                       freq: torch.Tensor, cum: torch.Tensor, T: int):
     """Plain torch version of :func:`encode_scan`."""
-    return rans.rans_encode(sym.reshape(-1), ctx.reshape(-1),
-                            freq.reshape(-1), cum.reshape(-1),
-                            freq.shape[1], T)
+    return encode_scan_flat_plain(*rans.gather_tables(
+        sym.reshape(-1), ctx.reshape(-1), freq.reshape(-1), cum.reshape(-1),
+        freq.shape[1], T))
 
 
 def encode_scan(sym: torch.Tensor, ctx: torch.Tensor, freq: torch.Tensor,

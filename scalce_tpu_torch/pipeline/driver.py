@@ -1,6 +1,7 @@
 """Serial compress/decompress drivers (port of the reference's
-``scalce_tpu/pipeline/driver.py`` entry points, without its host
-pipelining threads: ROADMAP.md Queue 1 item 17)."""
+``scalce_tpu/pipeline/driver.py`` entry points, ``--data-parallel``
+included, without its host pipelining threads: ROADMAP.md Queue 1 item
+17)."""
 
 from __future__ import annotations
 
@@ -9,11 +10,12 @@ import json
 import os
 import sys
 import time
-from typing import Dict
+from typing import Dict, Iterator, List
 
 from scalce_tpu import container
 from scalce_tpu.config import Config, resolve_read_len
 from scalce_tpu.io import fastq
+from scalce_tpu_torch.parallel.mesh import ShardedEncoder
 from scalce_tpu_torch.pipeline.decode import DECODE_GROUP, BlockDecoder
 from scalce_tpu_torch.pipeline.encode import BlockEncoder, file_meta
 from scalce_tpu_torch.timing import stage
@@ -39,44 +41,68 @@ class RunStats:
 
 
 def compress(cfg: Config, device) -> RunStats:
-    """Compress ``cfg.inputs[0]`` into the ``cfg.output`` triplet."""
+    """Compress ``cfg.inputs[0]`` into the ``cfg.output`` triplet; with
+    ``cfg.data_parallel``, in groups of blocks over every device that
+    ``device`` names (``parallel/mesh.py``)."""
     t0 = time.monotonic()
     for p in cfg.inputs:
         if p != "-" and not os.path.exists(p):
             raise FileNotFoundError(f"input FASTQ not found: {p}")
     cfg = resolve_read_len(cfg)
-    enc = BlockEncoder(cfg, device)
-    stats = RunStats(mode="compress", device=str(enc.device))
+    if cfg.data_parallel:
+        senc = ShardedEncoder(cfg, device)
+        D, encode_group, devices = senc.D, senc.encode_blocks, senc.mesh
+    else:
+        enc = BlockEncoder(cfg, device)
+        D, devices = 1, [enc.device]
+
+        def encode_group(group):
+            return [enc.encode_block(b) for b in group]
+    stats = RunStats(mode="compress",
+                     device=",".join(str(d) for d in devices))
     (path,) = cfg.inputs
     writer = container.TripletWriter(cfg.output, file_meta(cfg),
                                      part_size=cfg.part_size, mate=None,
                                      resume=cfg.resume)
     try:
         blocks = fastq.iter_blocks(path, cfg.block_reads, cfg.max_read_len)
-        while True:
-            with stage("parse FASTQ"):
-                block = next(blocks, None)
-            if block is None:
-                break
-            if block.block_id in writer.existing_blocks:
-                continue
-            eb = enc.encode_block(block)
-            with stage("write"):
-                writer.add_block(eb.block_id, eb.payloads, eb.n_reads)
-            stats.n_blocks += 1
-            stats.n_reads += eb.n_reads
-            for k, p in eb.payloads.items():
-                stats.stream_bytes[k] += len(p)
-            if cfg.verbose:
-                print(f"[scalce_tpu_torch] block {eb.block_id}: "
-                      f"{eb.n_reads} reads, {eb.total_bytes} bytes",
-                      file=sys.stderr)
+        for group in _groups(blocks, D, writer.existing_blocks):
+            for eb in encode_group(group):
+                with stage("write"):
+                    writer.add_block(eb.block_id, eb.payloads, eb.n_reads)
+                stats.n_blocks += 1
+                stats.n_reads += eb.n_reads
+                for k, p in eb.payloads.items():
+                    stats.stream_bytes[k] += len(p)
+                if cfg.verbose:
+                    print(f"[scalce_tpu_torch] block {eb.block_id}: "
+                          f"{eb.n_reads} reads, {eb.total_bytes} bytes",
+                          file=sys.stderr)
     finally:
         writer.close()
     stats.input_bytes = _file_size(path)
     stats.output_bytes = sum(stats.stream_bytes.values())
     stats.wall_s = time.monotonic() - t0
     return stats
+
+
+def _groups(blocks: Iterator, D: int, done) -> Iterator[List]:
+    """Parsed blocks in groups of D (the last may be shorter), skipping
+    the block ids in ``done`` (already in a resumed triplet)."""
+    group = []
+    while True:
+        with stage("parse FASTQ"):
+            block = next(blocks, None)
+        if block is None:
+            break
+        if block.block_id in done:
+            continue
+        group.append(block)
+        if len(group) == D:
+            yield group
+            group = []
+    if group:
+        yield group
 
 
 def check_decode_config(cfg: Config, meta: Dict) -> None:

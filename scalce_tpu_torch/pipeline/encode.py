@@ -35,9 +35,12 @@ _EVEN = 0x55555555
 def check_encode_config(cfg: Config) -> None:
     """Raise NotImplementedError for a Config outside the ported slice
     (single-end, lossless, full-device placement, hash dictionary, short
-    reads), naming the ROADMAP.md Queue 1 item that will add it."""
+    reads, one host), naming the ROADMAP.md Queue 1 item that will add
+    it."""
     if cfg.paired:
-        raise NotImplementedError("paired-end: ROADMAP.md Queue 1 item 12")
+        raise NotImplementedError(
+            "paired-end, also under --data-parallel: ROADMAP.md Queue 1 "
+            "item 12")
     if cfg.lossy_pct:
         raise NotImplementedError("lossy -p: ROADMAP.md Queue 1 item 13")
     if cfg.dict_mode != "hash":
@@ -52,9 +55,10 @@ def check_encode_config(cfg: Config) -> None:
             "host or AUTO placements (the port runs core_on_device, "
             "delta_on_device and qual_on_device): ROADMAP.md Queue 1 "
             "item 11")
-    if cfg.data_parallel or cfg.n_hosts > 1:
+    if cfg.n_hosts > 1:
         raise NotImplementedError(
-            "--data-parallel / multi-host: ROADMAP.md Queue 1 item 16")
+            "multi-host (n_hosts > 1, --merge-hosts): ROADMAP.md Queue 1 "
+            "item 16")
 
 
 def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -182,11 +186,24 @@ def _device_stage_a(seq_packed, qual, lengths, n_reads: int, exc_pos,
 
 def _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s, rc_s, n_reads: int,
                     order: int):
-    """Stage B: predecessor delta + quality contexts and histogram."""
+    """Stage B: predecessor delta + the quality symbol/context grids (the
+    caller counts them: K2 per block, or K6 per data-parallel group)."""
     delta = _delta_seq(codes_s, len_s, ck_s, cp_s, n_reads)
     delta["rc_bits"] = _pack_bits(rc_s)
-    sym, ctx, counts = qualities.sym_ctx_hist(qual_s, len_s, order)
-    return delta, sym, ctx, counts
+    sym, ctx = qualities.sym_ctx_grids(qual_s, len_s, order)
+    return delta, sym, ctx
+
+
+def _encode_core(seq_packed, qual, lengths, n_reads: int, exc_pos, k: int,
+                 seed: int, order: int):
+    """Stages A and B of one block -> ``(perm, delta, len_s, sym, ctx)``:
+    the reference's ``_encode_core`` without its histogram, which a
+    data-parallel group takes over all its blocks at once."""
+    perm, codes_s, qual_s, len_s, ck_s, cp_s, rc_s = _device_stage_a(
+        seq_packed, qual, lengths, n_reads, exc_pos, k, seed)
+    delta, sym, ctx = _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s,
+                                      rc_s, n_reads, order)
+    return perm, delta, len_s, sym, ctx
 
 
 def download_delta(delta: Dict[str, torch.Tensor]) -> Dict:
@@ -243,9 +260,11 @@ class BlockEncoder:
                 pre["seq"], pre["qual"], pre["len"], block.n_reads,
                 pre["exc"], cfg.core_k, cfg.dict_seed)
         with stage("stage B"):
-            delta, sym, ctx, counts = _device_stage_b(
+            delta, sym, ctx = _device_stage_b(
                 codes_s, qual_s, len_s, ck_s, cp_s, rc_s, block.n_reads,
                 cfg.qual_context_order)
+            counts = qualities.slab_histogram(sym, ctx,
+                                              cfg.qual_context_order)
         return perm, delta, len_s, sym, ctx, counts
 
     def assemble(self, block: ReadBlock, devout) -> EncodedBlock:
@@ -257,6 +276,14 @@ class BlockEncoder:
             enc_q = qualities.encode_from_grids(sym, ctx, counts, B, L,
                                                 cfg.qual_context_order,
                                                 T_target=cfg.qual_T_target)
+        return self.assemble_encoded(block, perm, delta, len_s, enc_q)
+
+    def assemble_encoded(self, block: ReadBlock, perm, delta, len_s,
+                         enc_q: qualities.EncodedQuals) -> EncodedBlock:
+        """Download and payload bytes, given the block's encoded quality
+        stream (the data-parallel path encodes a group's at once)."""
+        cfg = self.cfg
+        B, L = block.seq.shape
         with stage("quality payload"):
             q_payload = qualities.payload(enc_q, backend=cfg.backend)
 

@@ -5,7 +5,10 @@ Pass A (:func:`sym_ctx_hist`) builds the symbol and context grids and
 their histogram (kernel K2); the tables are normalized on the device;
 pass B (:func:`encode_from_grids`) rANS-encodes the grids (kernel K3)
 and compacts the emitted words; :func:`decode_batch` decodes D blocks in
-one launch (kernel K4).  The container half — :class:`EncodedQuals`,
+one launch (kernel K4).  A data-parallel group of D blocks takes the
+generic coder path instead: one histogram (:func:`group_histogram`,
+kernel K6) and one encode (:func:`group_encode`, kernel K5) over the
+stacked tables.  The container half — :class:`EncodedQuals`,
 :func:`payload`, :func:`parse` — is a jax-free copy of the reference's.
 
 Context model (shared bit-exactly by encode and decode):
@@ -94,10 +97,10 @@ def _slab_spec(order: int) -> Tuple[int, int, int]:
     return (_PREV1_FULL + 1, _POS_BUCKETS, 16)
 
 
-def sym_ctx_hist(qual: torch.Tensor, lengths: torch.Tensor, order: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Pass A: symbol grid, context grid (u32 in int64 ``[B, L]``) and
-    their (ctx, sym) histogram (i32, kernel K2)."""
+def sym_ctx_grids(qual: torch.Tensor, lengths: torch.Tensor, order: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symbol grid and context grid (u32 in int64 ``[B, L]``) of a
+    block's qualities."""
     B, L = qual.shape
     col = torch.arange(L, dtype=torch.int64, device=qual.device)[None, :]
     valid = col < lengths.to(torch.int64)[:, None]
@@ -107,9 +110,45 @@ def sym_ctx_hist(qual: torch.Tensor, lengths: torch.Tensor, order: int
     prev2 = torch.nn.functional.pad(sym[:, :-2], (2, 0))
     ctx = _ctx_from(prev1, prev2, _pos_bucket(col, order), col == 0,
                     col == 1, valid, order)
+    return sym, ctx
+
+
+def slab_histogram(sym: torch.Tensor, ctx: torch.Tensor, order: int
+                   ) -> torch.Tensor:
+    """(ctx, sym) histogram of one block's grids (i32, kernel K2)."""
     R, PB, cd = _slab_spec(order)
-    counts = hist.hist_ctx(sym, ctx, R, PB, cd, N_SYMS)
-    return sym, ctx, counts
+    return hist.hist_ctx(sym, ctx, R, PB, cd, N_SYMS)
+
+
+def sym_ctx_hist(qual: torch.Tensor, lengths: torch.Tensor, order: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pass A: symbol grid, context grid (u32 in int64 ``[B, L]``) and
+    their (ctx, sym) histogram (i32, kernel K2)."""
+    sym, ctx = sym_ctx_grids(qual, lengths, order)
+    return sym, ctx, slab_histogram(sym, ctx, order)
+
+
+def stacked_ctx(ctx: torch.Tensor, order: int) -> torch.Tensor:
+    """Context grids of D blocks ``[D, B, L]`` -> rows of the stacked
+    ``[D*C, N_SYMS]`` table: block d's context c is row ``d*C + c``."""
+    D = ctx.shape[0]
+    off = n_contexts(order) * torch.arange(D, dtype=torch.int64,
+                                           device=ctx.device)
+    return ctx + off.reshape(D, *([1] * (ctx.dim() - 1)))
+
+
+def group_histogram(sym: torch.Tensor, ctx: torch.Tensor, order: int
+                    ) -> torch.Tensor:
+    """(ctx, sym) histograms of D blocks' grids ``[D, B, L]`` -> i32
+    ``[D, C*N_SYMS]`` in ONE launch of kernel K6: the reference's generic
+    ``_ctx_histogram`` branch (``rans.context_histogram``) over the
+    stacked table."""
+    D = sym.shape[0]
+    C = n_contexts(order)
+    counts = rans.context_histogram(sym.reshape(-1),
+                                    stacked_ctx(ctx, order).reshape(-1),
+                                    D * C, N_SYMS)
+    return counts.reshape(D, C * N_SYMS)
 
 
 @dataclasses.dataclass
@@ -134,6 +173,34 @@ def encode_from_grids(sym: torch.Tensor, ctx: torch.Tensor,
     states, words, emits = encode_scan(sym, ctx, freq, cum, T)
     packed, wcounts = rans.compact_emissions(words, emits)
     return finish_encoded(freq, states, packed, wcounts, B, L, T, order)
+
+
+def _encode_pass(sym: torch.Tensor, ctx: torch.Tensor, freq: torch.Tensor,
+                 cum: torch.Tensor, T: int):
+    """Generic pass B: ``rans.rans_encode`` (gather + kernel K5) over
+    flat tables, then compaction -> ``(states [N], packed [N, T],
+    counts [N])`` (the reference's ``_encode_pass``)."""
+    states, words, emits = rans.rans_encode(
+        sym.reshape(-1), ctx.reshape(-1), freq.reshape(-1), cum.reshape(-1),
+        N_SYMS, T)
+    packed, counts = rans.compact_emissions(words, emits)
+    return states, packed, counts
+
+
+def group_encode(sym: torch.Tensor, ctx: torch.Tensor, counts: torch.Tensor,
+                 T: int, order: int):
+    """Pass B of D blocks' grids ``[D, B, L]`` with their histograms
+    ``[D, C*N_SYMS]``: per-block tables, then ONE K5 launch over the
+    group's ``D*N`` lanes (each block's lanes read its own table rows).
+    Returns ``(freq [D, C, N_SYMS], states [D, N], packed [D, N, T],
+    wcounts [D, N])``, each block's equal to its single-block pass B."""
+    D, B, L = sym.shape
+    freq, cum = entropy.device_normalize(counts, n_contexts(order), N_SYMS)
+    states, packed, wcounts = _encode_pass(sym, stacked_ctx(ctx, order),
+                                           freq, cum, T)
+    N = B * L // T
+    return (freq, states.reshape(D, N), packed.reshape(D, N, T),
+            wcounts.reshape(D, N))
 
 
 def finish_encoded(freq: torch.Tensor, states: torch.Tensor,

@@ -1,5 +1,6 @@
 """scalce_tpu_torch's CUDA kernels against their plain torch versions,
-and the card's compress against the CPU's, on small and awkward shapes.
+and the card's compress (single-device and data-parallel) against the
+CPU's, on small and awkward shapes.
 
 These need a CUDA card and skip without one.  They import no jax, so on
 a machine with the card but without jax they run as
@@ -14,8 +15,8 @@ import pytest
 import torch
 
 from scalce_tpu_torch.models import entropy
-from scalce_tpu_torch.ops import core_rank, hist, rans, rans_decode, \
-    rans_encode
+from scalce_tpu_torch.ops import core_rank, hist, histogram, rans, \
+    rans_decode, rans_encode, rans_encode_flat
 from scalce_tpu_torch.streams import qualities
 
 pytestmark = pytest.mark.gpu
@@ -84,6 +85,72 @@ def test_rans_encode_and_decode_kernels(cuda, order, D):
     args = (x["states"], x["words"], x["freq"], x["lengths"], order, T, L)
     assert torch.equal(rans_decode.decode_scan(*args),
                        rans_decode.decode_scan_plain(*args))
+
+
+@pytest.mark.parametrize("S,n_cells", [(1, 3), (777, 94), (100_003, 71_534),
+                                       (3_000_001, 286_136)])
+def test_histogram_kernel(cuda, S, n_cells):
+    rng = np.random.default_rng(S)
+    idx = rng.integers(0, n_cells, S)
+    idx[: S // 4] = 0                     # one hot cell, as padding is
+    idx[S // 4: S // 3] = n_cells - 1     # a run of another
+    idx = torch.from_numpy(idx).to(cuda)
+    got = histogram.histogram(idx, n_cells)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, histogram.histogram_plain(idx, n_cells))
+    assert int(got.sum()) == S
+
+
+@pytest.mark.parametrize("T,N", [(1, 1), (64, 1000), (2048, 333)])
+def test_rans_encode_flat_kernel(cuda, T, N):
+    rng = np.random.default_rng(T + N)
+    n_ctx, n_syms = 20, 94
+    sym = rng.integers(0, n_syms, T * N)
+    ctx = rng.integers(0, n_ctx, T * N)
+    sym[ctx == 0] = 0                     # a full-mass row, f = 4096
+    counts = np.zeros((n_ctx, n_syms), np.int64)
+    np.add.at(counts, (ctx, sym), 1)
+    freq, cum = entropy.device_normalize(torch.from_numpy(counts.reshape(-1)),
+                                         n_ctx, n_syms)
+    f_all, c_all = rans.gather_tables(
+        torch.from_numpy(sym).to(cuda), torch.from_numpy(ctx).to(cuda),
+        freq.reshape(-1).to(cuda), cum.reshape(-1).to(cuda), n_syms, T)
+    _equal(rans_encode_flat.encode_scan_flat(f_all, c_all),
+           rans_encode_flat.encode_scan_flat_plain(f_all, c_all))
+
+
+def test_card_data_parallel_matches_cpu(cuda, tmp_path):
+    """Every visible card, two blocks each, plus a tail group: the same
+    payloads as the CPU's single-device encoder, and the same triplet
+    from the data-parallel driver."""
+    import scalce_tpu_torch
+    from scalce_tpu.config import Config
+    from scalce_tpu.io import fastq
+    from scalce_tpu.utils.synth import synth_fastq
+    from scalce_tpu_torch.parallel import mesh
+    from scalce_tpu_torch.pipeline.encode import BlockEncoder
+    src = os.path.join(tmp_path, "in.fastq")
+    with open(src, "wb") as f:
+        f.write(synth_fastq(3000, 100, seed=2, var_len=True, n_rate=0.01))
+    kw = dict(block_reads=256, max_read_len=128, core_on_device=True,
+              delta_on_device=True, qual_on_device=True,
+              qual_context_order=1, backend="gz", threads=1)
+    cfg = Config(inputs=(src,), **kw)
+    blocks = list(fastq.iter_blocks(src, 256, 128))
+    senc = mesh.ShardedEncoder(cfg, "cuda", group=2)
+    got = []
+    for i in range(0, len(blocks), senc.D):
+        got += senc.encode_blocks(blocks[i:i + senc.D])
+    want = [BlockEncoder(cfg, "cpu").encode_block(b) for b in blocks]
+    assert [g.payloads for g in got] == [w.payloads for w in want]
+    outs = {}
+    for dev, dp in (("cpu", False), ("cuda", True)):
+        prefix = os.path.join(tmp_path, dev)
+        scalce_tpu_torch.compress(Config(inputs=(src,), output=prefix,
+                                         data_parallel=dp, **kw), dev)
+        outs[dev] = [open(f"{prefix}.00.scalce{s}", "rb").read()
+                     for s in "nrq"]
+    assert outs["cpu"] == outs["cuda"]
 
 
 def test_card_compress_matches_cpu(cuda, tmp_path):

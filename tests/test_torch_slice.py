@@ -103,15 +103,21 @@ def test_cli_round_trip_imports_no_jax(tmp_path):
         f.write(synth_fastq(600, 100, seed=3, var_len=True, n_rate=0.01))
     script = textwrap.dedent(f"""
         import sys
+        import scalce_tpu_torch.parallel.mesh
         from scalce_tpu_torch.cli import main
         out = {str(tmp_path)!r}
         main(["--device", "cpu", "--block-reads", "256", "-c", "gz",
               "-o", out + "/o", {src!r}])
+        main(["--device", "cpu", "--data-parallel", "--block-reads", "256",
+              "-c", "gz", "-o", out + "/p", {src!r}])
         main(["--device", "cpu", "-d", "--keep-order", "-o", out + "/d",
               out + "/o.00.scalcen"])
         assert "jax" not in sys.modules, "jax was imported"
         assert open(out + "/d.fastq", "rb").read() == open({src!r},
                                                            "rb").read()
+        for s in "nrq":
+            assert open(out + "/o.00.scalce" + s, "rb").read() == \\
+                open(out + "/p.00.scalce" + s, "rb").read()
     """)
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
@@ -123,7 +129,7 @@ def test_cli_round_trip_imports_no_jax(tmp_path):
     dict(paired=True, inputs=("a", "b")), dict(lossy_pct=30),
     dict(dict_mode="lut"), dict(core_on_device=None),
     dict(qual_on_device=False, delta_on_device=False, core_on_device=False),
-    dict(data_parallel=True), dict(n_hosts=2),
+    dict(data_parallel=True, n_hosts=2), dict(n_hosts=2),
     dict(max_read_len=32768, block_reads=256, core_on_device=None,
          delta_on_device=False, qual_on_device=False)])
 def test_configs_outside_the_slice_raise(change):
