@@ -24,10 +24,22 @@ Phases (the first failure exits non-zero; no phase is caught):
      tail) must give the single-device encoder's payloads, and the
      --data-parallel driver (one block per card) phase 4's triplet; K5
      and K6 must have run
+  7. paired-end: a 2 x 1,148,576-read pair compressed on the card (-r)
+     and decompressed in keep-order must give both files back, with K1-K4
+     launched; the --data-parallel pair (K5 and K6 launched) must write
+     the same _1/_2 triplets
+  8. lossy (-p 30) on the main file: keep-order decompress keeps names
+     and sequences and gives every quality through the map that
+     models/lossy.py builds from the sampled reads (within the 30%
+     budget); the --data-parallel lossy triplet equals the single-device
+     one (K5 and K6 launched); the lossy histogram all-reduce over every
+     card equals the host's; a ragged lossy pair with N bases gives the
+     same triplets on the card and on the CPU
 
 The line before the last is the card's name and power limit; the one
 before that is a JSON object with one entry per kernel (``launches``:
-phase 4's count for K1-K4, phase 6's for K5 and K6); the last line is
+phase 4's count for K1-K4, phase 6's for K5 and K6; phases 7 and 8 check
+their own counts); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -49,6 +61,7 @@ SLICE = dict(block_reads=1 << 18, max_read_len=128, qual_T_target=2048,
              qual_context_order=1, dict_mode="hash", backend="gz", threads=1)
 MAIN_READS = 1_148_576
 RAGGED_READS = 393_216
+LOSSY_PCT = 30
 
 
 def say(msg: str) -> None:
@@ -91,6 +104,17 @@ def max_abs_err(a, b) -> int:
         if not torch.equal(x, y):
             raise AssertionError(f"kernel != plain (max abs err {err})")
     return err
+
+
+def reset(kernels: dict) -> None:
+    """Set every kernel's launch count to 0."""
+    for _, fn in kernels.values():
+        fn.launches = 0
+
+
+def counts(kernels: dict, names) -> dict:
+    """The launch counts of the kernels ``names``."""
+    return {name: kernels[name][1].launches for name in names}
 
 
 def write_fastq(path: str, n_reads: int, **kw) -> bytes:
@@ -215,12 +239,12 @@ def check_kernels(blocks, dev, kernels) -> dict:
     return out
 
 
-def compress_file(src: str, out: str, device: str) -> float:
+def compress_file(src: str, out: str, device: str, **change) -> float:
     import scalce_tpu_torch
     from scalce_tpu.config import Config
     t0 = time.monotonic()
-    scalce_tpu_torch.compress(Config(inputs=(src,), output=out, **SLICE),
-                              device)
+    scalce_tpu_torch.compress(Config(inputs=(src,), output=out,
+                                     **{**SLICE, **change}), device)
     if device != "cpu":
         torch.cuda.synchronize()
     return time.monotonic() - t0
@@ -252,8 +276,7 @@ def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
     torch.cuda.synchronize()
     t_one = time.monotonic() - t0
 
-    for _, fn in kernels.values():
-        fn.launches = 0
+    reset(kernels)
     t0 = time.monotonic()
     senc = mesh.ShardedEncoder(
         cfg, "cuda", group=max(1, 4 // torch.cuda.device_count()))
@@ -272,7 +295,7 @@ def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
         tmp, "dp"), data_parallel=True, **SLICE), "cuda")
     torch.cuda.synchronize()
     t_dp = time.monotonic() - t0
-    launches = {name: fn.launches for name, (_, fn) in kernels.items()}
+    launches = counts(kernels, kernels)
     if triplet(os.path.join(tmp, "dp")) != triplet(os.path.join(tmp,
                                                                  "main")):
         raise AssertionError("--data-parallel triplet != phase 4's")
@@ -290,6 +313,196 @@ def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
         f"MB/s, --data-parallel (1 block per card) {t_dp:.3f} s = "
         f"{mb / t_dp:.2f} MB/s | {smi}")
     return launches
+
+
+def check_paired(tmp: str, kernels: dict, smi: str) -> None:
+    """Phase 7: paired-end compress, keep-order decompress and the
+    --data-parallel pair on the card."""
+    import scalce_tpu_torch
+    from scalce_tpu.config import Config
+    from scalce_tpu.utils.synth import synth_pair
+    mates = synth_pair(MAIN_READS, 100, seed=42, genome_len=1_000_000,
+                       n_rate=0.001)
+    paths = tuple(os.path.join(tmp, f"mate{m}.fastq") for m in (1, 2))
+    for path, data in zip(paths, mates):
+        with open(path, "wb") as f:
+            f.write(data)
+    cfg = dict(inputs=paths, paired=True, **SLICE)
+
+    reset(kernels)
+    t0 = time.monotonic()
+    scalce_tpu_torch.compress(Config(output=os.path.join(tmp, "pair"),
+                                     **cfg), "cuda")
+    torch.cuda.synchronize()
+    t_c = time.monotonic() - t0
+    t0 = time.monotonic()
+    scalce_tpu_torch.decompress(Config(
+        mode="decompress", inputs=(os.path.join(tmp, "pair.00_1.scalcen"),),
+        output=os.path.join(tmp, "pair_out"), keep_order=True,
+        qual_on_device=True), "cuda")
+    t_d = time.monotonic() - t0
+    launches = counts(kernels, ("K1", "K2", "K3", "K4"))
+    for m, data in zip((1, 2), mates):
+        with open(os.path.join(tmp, f"pair_out_{m}.fastq"), "rb") as f:
+            if f.read() != data:
+                raise AssertionError(f"paired keep-order decompress != "
+                                     f"mate {m}'s input")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel never ran on the paired path: "
+                             f"{launches}")
+    trip = triplet(os.path.join(tmp, "pair"))
+    comp = sum(len(b) for _, b in trip)
+    mb = sum(len(d) for d in mates) / 1e6
+    say(f"paired: 2 x {MAIN_READS} reads, {int(mb * 1e6)} B -> {comp} B "
+        f"(ratio {mb * 1e6 / comp:.4f}, {len(trip)} files); launches "
+        f"{launches}")
+    del mates
+
+    reset(kernels)
+    t0 = time.monotonic()
+    scalce_tpu_torch.compress(Config(output=os.path.join(tmp, "pair_dp"),
+                                     data_parallel=True, **cfg), "cuda")
+    torch.cuda.synchronize()
+    t_dp = time.monotonic() - t0
+    dp = counts(kernels, ("K1", "K5", "K6"))
+    if triplet(os.path.join(tmp, "pair_dp")) != trip:
+        raise AssertionError("paired --data-parallel triplets != "
+                             "single-device ones")
+    if not all(dp.values()):
+        raise AssertionError(f"K1, K5 or K6 never ran on the paired "
+                             f"data-parallel path: {dp}")
+    say(f"paired --data-parallel: _1/_2 triplets equal the single-device "
+        f"ones; launches {dp}")
+    say(f"paired compress {t_c:.3f} s = {mb / t_c:.2f} MB/s, decompress "
+        f"{t_d:.3f} s = {mb / t_d:.2f} MB/s, --data-parallel compress "
+        f"{t_dp:.3f} s = {mb / t_dp:.2f} MB/s | {smi}")
+
+
+def check_lossy(src: str, data: bytes, lossless_bytes: int, tmp: str,
+                kernels: dict, smi: str) -> None:
+    """Phase 8: lossy compress of the main file on the card, its keep-order
+    round trip, the --data-parallel lossy triplet, the all-reduce, and a
+    ragged lossy pair on the card and the CPU."""
+    import numpy as np
+    import scalce_tpu_torch
+    from scalce_tpu.config import Config
+    from scalce_tpu.io import fastq
+    from scalce_tpu.utils.synth import synth_pair
+    from scalce_tpu_torch.models import lossy
+    from scalce_tpu_torch.parallel import mesh
+    from scalce_tpu_torch.pipeline import encode
+    cfg = dict(lossy_pct=LOSSY_PCT, **SLICE)
+
+    reset(kernels)
+    t_c = compress_file(src, os.path.join(tmp, "lossy"), "cuda",
+                        lossy_pct=LOSSY_PCT)
+    t0 = time.monotonic()
+    scalce_tpu_torch.decompress(Config(
+        mode="decompress", inputs=(os.path.join(tmp, "lossy.00.scalcen"),),
+        output=os.path.join(tmp, "lossy_out"), keep_order=True,
+        qual_on_device=True), "cuda")
+    t_d = time.monotonic() - t0
+    launches = counts(kernels, ("K1", "K2", "K3", "K4"))
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel never ran on the lossy path: "
+                             f"{launches}")
+
+    # the map the driver must have used: the reads of the first blocks
+    # up to the sample size (Config.sample_size)
+    sample = Config(inputs=(src,), **cfg).sample_size
+    hist, n, blocks = np.zeros(lossy.N_SYMS, np.int64), 0, []
+    for block in fastq.iter_blocks(src, SLICE["block_reads"],
+                                   SLICE["max_read_len"]):
+        blocks.append(block)
+        if n < sample:
+            hist += lossy.sample_histogram(block.qual, block.lengths,
+                                           block.n_reads)
+            n += block.n_reads
+        if n >= sample and len(blocks) >= torch.cuda.device_count():
+            break
+    lut = lossy.build_quant_map(hist, LOSSY_PCT)
+    v = np.arange(lossy.N_SYMS)
+    err = np.abs(lut[v + lossy.QUAL_OFFSET].astype(np.int64)
+                 - lossy.QUAL_OFFSET - v)
+    if (err > LOSSY_PCT / 100 * v).any() or lossy.max_abs_error(lut) == 0:
+        raise AssertionError("lossy map outside its budget, or identity")
+    lines = data.split(b"\n")
+    lines[3::4] = [q.translate(lut.tobytes()) for q in lines[3::4]]
+    with open(os.path.join(tmp, "lossy_out.fastq"), "rb") as f:
+        if f.read() != b"\n".join(lines):
+            raise AssertionError("lossy decompress: names or sequences "
+                                 "changed, or a quality not through the map")
+    del lines
+    comp = sum(len(b) for _, b in triplet(os.path.join(tmp, "lossy")))
+    mb = len(data) / 1e6
+    say(f"lossy -p {LOSSY_PCT}: {len(data)} B -> {comp} B (ratio "
+        f"{len(data) / comp:.4f}; lossless {len(data) / lossless_bytes:.4f})"
+        f", max abs quality error {lossy.max_abs_error(lut)}; names and "
+        f"sequences exact, qualities through the sampled map; launches "
+        f"{launches}")
+
+    # the lossy gather of one block's quality grid on the card
+    qmap = encode.device_qual_map(lut, "cuda")
+    grid = torch.from_numpy(blocks[0].qual).to("cuda")
+    if not torch.equal(encode.remap_qualities(grid, qmap).cpu(),
+                       torch.from_numpy(lut[blocks[0].qual])):
+        raise AssertionError("remap_qualities != the LUT on the host")
+    gather_ms = time_ms(lambda: encode.remap_qualities(grid, qmap), 20)
+    del grid
+
+    # the histogram all-reduce over every card (one K6 launch each)
+    cards = mesh.local_mesh(device="cuda")
+    group = blocks[:len(cards)]
+    got = mesh.lossy_hist_allreduce(np.stack([b.qual for b in group]),
+                                    np.stack([b.lengths for b in group]),
+                                    cards).cpu().numpy()
+    want = sum(lossy.sample_histogram(b.qual, b.lengths, b.n_reads)
+               for b in group)
+    if not np.array_equal(got, want):
+        raise AssertionError("lossy histogram all-reduce != host histogram")
+    del blocks, group
+
+    reset(kernels)
+    t_dp = compress_file(src, os.path.join(tmp, "lossy_dp"), "cuda",
+                         lossy_pct=LOSSY_PCT, data_parallel=True)
+    dp = counts(kernels, ("K1", "K5", "K6"))
+    if triplet(os.path.join(tmp, "lossy_dp")) != triplet(
+            os.path.join(tmp, "lossy")):
+        raise AssertionError("lossy --data-parallel triplet != "
+                             "single-device one")
+    if not all(dp.values()):
+        raise AssertionError(f"K1, K5 or K6 never ran on the lossy "
+                             f"data-parallel path: {dp}")
+    say(f"lossy --data-parallel triplet equals the single-device one; "
+        f"all-reduce over {len(cards)} card(s) equals the host histogram; "
+        f"launches {dp}")
+
+    mates = synth_pair(RAGGED_READS // 2, 100, seed=7, var_len=True,
+                       n_rate=0.01)
+    paths = tuple(os.path.join(tmp, f"lr{m}.fastq") for m in (1, 2))
+    for path, mate in zip(paths, mates):
+        with open(path, "wb") as f:
+            f.write(mate)
+    walls = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.monotonic()
+        scalce_tpu_torch.compress(Config(
+            inputs=paths, paired=True, output=os.path.join(tmp, "lp" + dev),
+            **cfg), dev)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        walls[dev] = time.monotonic() - t0
+    gpu, cpu = (triplet(os.path.join(tmp, "lp" + dev))
+                for dev in ("cuda", "cpu"))
+    if gpu != cpu or len(gpu) != 6:
+        raise AssertionError("card and CPU lossy paired triplets differ")
+    say(f"card == CPU lossy paired triplets on the ragged pair (2 x "
+        f"{RAGGED_READS // 2} reads; card {walls['cuda']:.2f} s, CPU "
+        f"{walls['cpu']:.2f} s)")
+    say(f"lossy compress {t_c:.3f} s = {mb / t_c:.2f} MB/s, decompress "
+        f"{t_d:.3f} s = {mb / t_d:.2f} MB/s, --data-parallel compress "
+        f"{t_dp:.3f} s = {mb / t_dp:.2f} MB/s; lossy gather "
+        f"{gather_ms:.3f} ms per block | {smi}")
 
 
 def main() -> int:
@@ -325,8 +538,7 @@ def main() -> int:
         measured = check_kernels(group, dev, kernels)           # phase 3
         del group
 
-        for _, fn in kernels.values():                          # phase 4
-            fn.launches = 0
+        reset(kernels)                                          # phase 4
         t_c = compress_file(src, os.path.join(tmp, "main"), "cuda")
         import scalce_tpu_torch
         from scalce_tpu.config import Config
@@ -336,7 +548,7 @@ def main() -> int:
             output=os.path.join(tmp, "main_out"), keep_order=True,
             qual_on_device=True), "cuda")
         t_d = time.monotonic() - t0
-        launches = {name: kernels[name][1].launches for name in main_path}
+        launches = counts(kernels, main_path)
         with open(os.path.join(tmp, "main_out.fastq"), "rb") as f:
             if f.read() != data:
                 raise AssertionError("keep-order decompress != input")
@@ -365,6 +577,8 @@ def main() -> int:
 
         dp = check_data_parallel(src, tmp, kernels, smi, t_c)   # phase 6
         launches.update(K5=dp["K5"], K6=dp["K6"])
+        check_paired(tmp, kernels, smi)                         # phase 7
+        check_lossy(src, data, comp, tmp, kernels, smi)         # phase 8
 
     print(json.dumps({"kernels": [
         {"name": f"{name} {fn.__name__}", "route": "cuda",

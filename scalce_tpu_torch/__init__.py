@@ -2,16 +2,18 @@
 
 A FASTQ codec: reads are reordered by a locally-consistent core k-mer,
 each sequence is coded as a delta against aligned predecessors, and
-qualities go through a context-modelled interleaved rANS coder.  Every
-payload byte equals what ``scalce_tpu`` writes for the same input and
-Config, so triplets cross-decode between the two packages.
+qualities go through a context-modelled interleaved rANS coder.
+Single-end or paired-end (``_1``/``_2`` triplets in pair sync), lossless
+or with a lossy quality map.  Every payload byte equals what
+``scalce_tpu`` writes for the same input and Config, so triplets
+cross-decode between the two packages.
 
 Layout (counterparts of ``scalce_tpu``'s subpackages):
   ops/        plain torch ops and the kernel wrappers (K1 core_rank,
               K2 hist, K3 rans_encode, K4 rans_decode, K5
               rans_encode_flat, K6 histogram)
   csrc/       the hand-written CUDA kernels (sm_90a), built at first use
-  models/     rANS table normalization
+  models/     rANS table normalization, the lossy quality map
   streams/    sequence and quality payload codecs
   pipeline/   block encoder/decoder and the compress/decompress drivers
   parallel/   data parallelism over the devices of one host

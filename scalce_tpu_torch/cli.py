@@ -1,11 +1,18 @@
 """Command line of the port: the reference's flags plus ``--device``.
 
   python -m scalce_tpu_torch input.fastq -o out                 compress
+  python -m scalce_tpu_torch r1.fq r2.fq -r -o out              paired-end
+  python -m scalce_tpu_torch input.fastq -p 30 [-S N] -o out    lossy
   python -m scalce_tpu_torch -d out.00.scalcen -o result        decompress
+  python -m scalce_tpu_torch -d out.00_1.scalcen -o result      result_1.fastq
+                                                                result_2.fastq
 
-``--data-parallel`` compresses in groups of blocks over every visible
-card (``--device cuda``), or over the one device that ``cuda:N`` or
-``cpu`` names; the triplet is the same.  The parser is
+``-r`` writes ``out.00_1.*`` and ``out.00_2.*`` triplets (mate 2 follows
+mate 1's order); ``-p PCT`` maps qualities through a map built from the
+first ``-S`` reads (default 100,000), within PCT percent of each value.
+``--data-parallel`` compresses in groups of blocks (or pairs) over every
+visible card (``--device cuda``), or over the one device that ``cuda:N``
+or ``cpu`` names; the triplets are the same.  The parser is
 ``scalce_tpu.cli.build_parser``; its defaults are moved to the ported
 slice (device placement of every stage, quality context order 1, the
 best installed byte backend), so the bare command runs.  Flags outside

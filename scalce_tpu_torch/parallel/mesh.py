@@ -7,15 +7,19 @@ device runs stages A and B per block, then counts its blocks' quality
 grids in ONE launch of kernel K6 and rANS-encodes them in ONE launch of
 kernel K5 over the stacked per-block tables: the reference's
 ``jax.vmap`` over a device's blocks, written out as one flat problem.
-There is no traffic between devices.  A tail group (fewer than D blocks)
-takes the single-device :class:`BlockEncoder` per block, as the
+A group of D pairs runs mate 1's stage 1, then mate 2's following each
+block's permutation, then each mate's pass B.  The encoder sends nothing
+between devices; the one collective is :func:`lossy_hist_allreduce`
+(the lossy map's histogram summed over devices), which the
+single-host driver does not need.  A tail group (fewer than D blocks or
+pairs) takes the single-device :class:`BlockEncoder`, as the
 reference's does.  Every payload byte equals the single-device path's:
 bytes are a pure function of (block, Config).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +29,7 @@ from scalce_tpu.io.fastq import ReadBlock
 from scalce_tpu.streams.seqs import _pack2bit_np
 from scalce_tpu_torch import convert
 from scalce_tpu_torch.device import resolve_device
+from scalce_tpu_torch.ops.histogram import histogram
 from scalce_tpu_torch.pipeline import encode
 from scalce_tpu_torch.streams import qualities
 from scalce_tpu_torch.timing import stage
@@ -61,15 +66,25 @@ def upload_blocks(blocks: Sequence[ReadBlock], device
 
 
 def stage1(pre: Dict[str, torch.Tensor], n_reads: Sequence[int], k: int,
-           seed: int, order: int):
+           seed: int, order: int, qual_map: Optional[torch.Tensor] = None,
+           perms: Optional[Sequence[torch.Tensor]] = None):
     """One device's share of a group (the reference's
     ``make_sharded_stage1`` on one device): stages A and B per block,
-    then ONE K6 launch over the stacked grids.  Returns per-block lists
-    ``perm``, ``delta``, ``len_s``, then ``sym`` and ``ctx`` ``[g, B,
-    L]`` and ``counts`` ``[g, C*94]``."""
-    outs = [encode._encode_core(pre["seq"][j], pre["qual"][j], pre["len"][j],
-                                n, pre["exc"][j], k, seed, order)
-            for j, n in enumerate(n_reads)]
+    then ONE K6 launch over the stacked grids.  With ``perms`` (mate 1's
+    permutations) the blocks are mate 2's, each following its mate-1
+    block's permutation (``make_sharded_stage_mate2``).  Returns
+    per-block lists ``perm``, ``delta``, ``len_s``, then ``sym`` and
+    ``ctx`` ``[g, B, L]`` and ``counts`` ``[g, C*94]``."""
+    if perms is None:
+        outs = [encode._encode_core(pre["seq"][j], pre["qual"][j],
+                                    pre["len"][j], n, pre["exc"][j], k, seed,
+                                    order, qual_map)
+                for j, n in enumerate(n_reads)]
+    else:
+        outs = [encode._encode_core_mate2(pre["seq"][j], pre["qual"][j],
+                                          pre["len"][j], n, pre["exc"][j],
+                                          perms[j], k, seed, order, qual_map)
+                for j, n in enumerate(n_reads)]
     perm, delta, len_s, sym, ctx = map(list, zip(*outs))
     sym, ctx = torch.stack(sym), torch.stack(ctx)
     return (perm, delta, len_s, sym, ctx,
@@ -80,17 +95,20 @@ class ShardedEncoder:
     """Data-parallel block encoder over the devices of one host.
 
     ``device`` names them (see :func:`local_mesh`) unless ``mesh`` lists
-    them; ``group`` blocks go to each device per step (default 1).
-    Payloads are byte-identical to :class:`BlockEncoder`'s."""
+    them; ``group`` blocks go to each device per step (default 1);
+    ``qual_map`` is the lossy quality map (None: lossless), kept on each
+    device.  Payloads are byte-identical to :class:`BlockEncoder`'s."""
 
     def __init__(self, cfg: Config, device, mesh=None,
-                 group: Optional[int] = None):
+                 group: Optional[int] = None, qual_map=None):
         cfg = resolve_read_len(cfg)
         self.mesh = list(mesh) if mesh is not None \
             else local_mesh(device=device)
         self.group = group or 1
         self.D = len(self.mesh) * self.group
-        self._fallback = encode.BlockEncoder(cfg, self.mesh[0])
+        self._fallback = encode.BlockEncoder(cfg, self.mesh[0], qual_map)
+        self._maps = {dev: encode.device_qual_map(qual_map, dev)
+                      for dev in set(self.mesh)}
         self.cfg = cfg
 
     def _shares(self, blocks: Sequence[ReadBlock]) -> List[Sequence]:
@@ -106,27 +124,38 @@ class ShardedEncoder:
             return [upload_blocks(share, dev) for share, dev
                     in zip(self._shares(blocks), self.mesh)]
 
-    def encode_device(self, blocks: Sequence[ReadBlock], pre=None):
-        """Device work of a full group: every device's stage 1 is queued
-        before any pass B, so the devices run side by side.  Returns one
-        ``(perm, delta, len_s, freq, states, packed, wcounts)`` per
-        device."""
+    def _stage1(self, blocks: Sequence[ReadBlock], pre=None, perms=None):
+        """Every device's :func:`stage1` of a full group (``perms``: per
+        device, mate 1's permutations), queued before any pass B, so
+        the devices run side by side."""
         if len(blocks) != self.D:
-            raise ValueError(f"encode_device takes a group of {self.D} "
-                             f"blocks, got {len(blocks)}")
+            raise ValueError(f"a device group takes {self.D} blocks, got "
+                             f"{len(blocks)}")
         cfg = self.cfg
-        order = cfg.qual_context_order
         pre = pre if pre is not None else self.upload_group(blocks)
+        with stage("stage A+B"):
+            return [stage1(p, [b.n_reads for b in share], cfg.core_k,
+                           cfg.dict_seed, cfg.qual_context_order,
+                           self._maps[dev],
+                           None if perms is None else perms[i])
+                    for i, (p, share, dev) in enumerate(zip(
+                        pre, self._shares(blocks), self.mesh))]
+
+    def _pass_b(self, blocks: Sequence[ReadBlock], s1):
+        """Every device's group pass B: ``(perm, delta, len_s, freq,
+        states, packed, wcounts)`` per device."""
+        cfg = self.cfg
         B, L = blocks[0].seq.shape
         T = qualities.pick_T(B, L, cfg.qual_T_target)
-        with stage("stage A+B"):
-            s1 = [stage1(p, [b.n_reads for b in share], cfg.core_k,
-                         cfg.dict_seed, order)
-                  for p, share in zip(pre, self._shares(blocks))]
         with stage("pass B"):
-            return [(perm, delta, len_s)
-                    + qualities.group_encode(sym, ctx, counts, T, order)
+            return [(perm, delta, len_s) + qualities.group_encode(
+                        sym, ctx, counts, T, cfg.qual_context_order)
                     for perm, delta, len_s, sym, ctx, counts in s1]
+
+    def encode_device(self, blocks: Sequence[ReadBlock], pre=None):
+        """Device work of a full group: every device's stage 1, then
+        every device's pass B."""
+        return self._pass_b(blocks, self._stage1(blocks, pre))
 
     def assemble(self, blocks: Sequence[ReadBlock], devout
                  ) -> List[encode.EncodedBlock]:
@@ -153,3 +182,63 @@ class ShardedEncoder:
         if len(blocks) < self.D:
             return [self._fallback.encode_block(b) for b in blocks]
         return self.assemble(blocks, self.encode_device(blocks))
+
+    # paired-end: mate 1 defines each block's permutation; mate 2's
+    # stage 1 follows it, then each mate's group pass B (one K6 and one
+    # K5 launch per device and mate)
+
+    def encode_device_pair(self, pairs: Sequence[Tuple[ReadBlock,
+                                                       ReadBlock]]):
+        """Device work of a full group of D pairs -> ``(mate 1's, mate
+        2's)`` per-device outputs in :meth:`assemble`'s form."""
+        b1s, b2s = [p[0] for p in pairs], [p[1] for p in pairs]
+        s1 = self._stage1(b1s)
+        s2 = self._stage1(b2s, perms=[s[0] for s in s1])
+        return self._pass_b(b1s, s1), self._pass_b(b2s, s2)
+
+    def assemble_pair(self, pairs, devout
+                      ) -> List[Tuple[encode.EncodedBlock,
+                                      encode.EncodedBlock]]:
+        out1, out2 = devout
+        return list(zip(self.assemble([p[0] for p in pairs], out1),
+                        self.assemble([p[1] for p in pairs], out2)))
+
+    def encode_block_pairs(self, pairs: Sequence[Tuple[ReadBlock, ReadBlock]]
+                           ) -> List[Tuple[encode.EncodedBlock,
+                                           encode.EncodedBlock]]:
+        """Encode up to D pairs; a tail group goes pair by pair through
+        the single-device encoder (identical bytes)."""
+        if len(pairs) < self.D:
+            return [self._fallback.encode_block_pair(*p) for p in pairs]
+        return self.assemble_pair(pairs, self.encode_device_pair(pairs))
+
+
+def lossy_hist_allreduce(quals, lengths, mesh: Sequence[torch.device]
+                         ) -> torch.Tensor:
+    """Quality histogram of a group of blocks, summed over the devices
+    (the reference's ``make_lossy_hist_allreduce``: every device, and
+    later every host, derives the same lossy map from it).
+
+    ``quals`` uint8 ``[D, B, L]`` and ``lengths`` ``[D, B]`` (host
+    arrays; D a multiple of ``len(mesh)``) are split over ``mesh`` in
+    consecutive shares.  On each device the symbols of valid cells and
+    an overflow bin 94 for padding go through ONE K6 launch over 95
+    cells; the per-device counts are summed on ``mesh[0]``.  Returns i32
+    ``[94]`` on ``mesh[0]``."""
+    D, _, L = quals.shape
+    if D % len(mesh):
+        raise ValueError(f"{D} blocks do not split over {len(mesh)} devices")
+    g = D // len(mesh)
+    total = None
+    for i, dev in enumerate(mesh):
+        q = torch.from_numpy(np.ascontiguousarray(quals[i * g:(i + 1) * g])
+                             ).to(dev)
+        ln = torch.from_numpy(np.asarray(lengths[i * g:(i + 1) * g],
+                                         np.int64)).to(dev)
+        valid = torch.arange(L, device=dev)[None, None, :] < ln[:, :, None]
+        sym = torch.clamp(q.to(torch.int64) - qualities.QUAL_OFFSET, 0,
+                          qualities.N_SYMS - 1)
+        h = histogram(torch.where(valid, sym, qualities.N_SYMS),
+                      qualities.N_SYMS + 1).to(mesh[0])
+        total = h if total is None else total + h
+    return total[:qualities.N_SYMS]

@@ -1,20 +1,25 @@
 """Serial compress/decompress drivers (port of the reference's
-``scalce_tpu/pipeline/driver.py`` entry points, ``--data-parallel``
-included, without its host pipelining threads: ROADMAP.md Queue 1 item
-17)."""
+``scalce_tpu/pipeline/driver.py`` entry points, paired-end, lossy and
+``--data-parallel`` included, without its host pipelining threads:
+ROADMAP.md Queue 1 item 17)."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import sys
 import time
 from typing import Dict, Iterator, List
 
+import numpy as np
+
 from scalce_tpu import container
 from scalce_tpu.config import Config, resolve_read_len
 from scalce_tpu.io import fastq
+from scalce_tpu_torch.models import lossy
 from scalce_tpu_torch.parallel.mesh import ShardedEncoder
 from scalce_tpu_torch.pipeline.decode import DECODE_GROUP, BlockDecoder
 from scalce_tpu_torch.pipeline.encode import BlockEncoder, file_meta
@@ -40,64 +45,128 @@ class RunStats:
         return json.dumps(d, sort_keys=True)
 
 
+def _lossy_preamble(cfg: Config, blocks: Iterator):
+    """Sample the first ``cfg.sample_size`` reads (both mates of a pair)
+    for the lossy histogram -> ``(qual_map, blocks)``: the sampled blocks
+    are buffered and come first again, so the input is read once (copy
+    of the reference's sampling pass)."""
+    if cfg.lossy_pct <= 0:
+        return lossy.identity_map(), blocks
+    hist = np.zeros(lossy.N_SYMS, np.int64)
+    buffered = []
+    sampled = 0
+    with stage("lossy preamble"):
+        for item in blocks:
+            for b in item if isinstance(item, tuple) else (item,):
+                hist += lossy.sample_histogram(b.qual, b.lengths, b.n_reads)
+                sampled += b.n_reads
+            buffered.append(item)
+            if sampled >= cfg.sample_size:
+                break
+        qual_map = lossy.build_quant_map(hist, cfg.lossy_pct) if buffered \
+            else lossy.identity_map()
+    return qual_map, itertools.chain(buffered, blocks)
+
+
+def _open_writers(cfg: Config) -> List[container.TripletWriter]:
+    """The output triplet, or the ``_1``/``_2`` pair of them.  A resumed
+    pair whose mates hold different durable blocks (a crash between the
+    mates' writes) is cut back to the blocks both hold, so pairs stay
+    in sync."""
+    meta = file_meta(cfg)
+    mates = (1, 2) if cfg.paired else (None,)
+
+    def open_all(**kw):
+        return [container.TripletWriter(cfg.output, meta,
+                                        part_size=cfg.part_size, mate=m,
+                                        resume=cfg.resume, **kw)
+                for m in mates]
+    writers = open_all()
+    if cfg.resume and cfg.paired \
+            and writers[0].existing_blocks != writers[1].existing_blocks:
+        common = writers[0].existing_blocks & writers[1].existing_blocks
+        for w in writers:
+            w.abort()
+        writers = open_all(keep_only=common)
+        if any(w.existing_blocks != common for w in writers):
+            raise RuntimeError("paired resume could not cut both mates "
+                               "back to their common blocks")
+    return writers
+
+
 def compress(cfg: Config, device) -> RunStats:
-    """Compress ``cfg.inputs[0]`` into the ``cfg.output`` triplet; with
-    ``cfg.data_parallel``, in groups of blocks over every device that
-    ``device`` names (``parallel/mesh.py``)."""
+    """Compress ``cfg.inputs`` (one FASTQ, or a pair with ``cfg.paired``)
+    into the ``cfg.output`` triplet (``_1``/``_2`` triplets for a pair);
+    with ``cfg.data_parallel``, in groups of blocks over every device
+    that ``device`` names (``parallel/mesh.py``); with ``cfg.lossy_pct``,
+    through the lossy quality map of the sampled reads."""
     t0 = time.monotonic()
     for p in cfg.inputs:
         if p != "-" and not os.path.exists(p):
             raise FileNotFoundError(f"input FASTQ not found: {p}")
     cfg = resolve_read_len(cfg)
-    if cfg.data_parallel:
-        senc = ShardedEncoder(cfg, device)
-        D, encode_group, devices = senc.D, senc.encode_blocks, senc.mesh
+    if cfg.paired:
+        blocks = fastq.iter_paired_blocks(*cfg.inputs, cfg.block_reads,
+                                          cfg.max_read_len)
     else:
-        enc = BlockEncoder(cfg, device)
+        (path,) = cfg.inputs
+        blocks = fastq.iter_blocks(path, cfg.block_reads, cfg.max_read_len)
+    qual_map, blocks = _lossy_preamble(cfg, blocks)
+    if cfg.data_parallel:
+        senc = ShardedEncoder(cfg, device, qual_map=qual_map)
+        D, devices = senc.D, senc.mesh
+        encode_group = senc.encode_block_pairs if cfg.paired \
+            else senc.encode_blocks
+    else:
+        enc = BlockEncoder(cfg, device, qual_map)
         D, devices = 1, [enc.device]
 
         def encode_group(group):
-            return [enc.encode_block(b) for b in group]
+            return [enc.encode_block_pair(*b) if cfg.paired
+                    else enc.encode_block(b) for b in group]
     stats = RunStats(mode="compress",
                      device=",".join(str(d) for d in devices))
-    (path,) = cfg.inputs
-    writer = container.TripletWriter(cfg.output, file_meta(cfg),
-                                     part_size=cfg.part_size, mate=None,
-                                     resume=cfg.resume)
+    writers = _open_writers(cfg)
     try:
-        blocks = fastq.iter_blocks(path, cfg.block_reads, cfg.max_read_len)
-        for group in _groups(blocks, D, writer.existing_blocks):
-            for eb in encode_group(group):
+        for group in _groups(blocks, D, writers[0].existing_blocks):
+            for out in encode_group(group):
+                ebs = out if cfg.paired else (out,)
                 with stage("write"):
-                    writer.add_block(eb.block_id, eb.payloads, eb.n_reads)
+                    for w, eb in zip(writers, ebs):
+                        w.add_block(eb.block_id, eb.payloads, eb.n_reads)
                 stats.n_blocks += 1
-                stats.n_reads += eb.n_reads
-                for k, p in eb.payloads.items():
-                    stats.stream_bytes[k] += len(p)
+                for eb in ebs:
+                    stats.n_reads += eb.n_reads
+                    for k, p in eb.payloads.items():
+                        stats.stream_bytes[k] += len(p)
                 if cfg.verbose:
-                    print(f"[scalce_tpu_torch] block {eb.block_id}: "
-                          f"{eb.n_reads} reads, {eb.total_bytes} bytes",
+                    print(f"[scalce_tpu_torch] block {ebs[0].block_id}: "
+                          f"{sum(eb.n_reads for eb in ebs)} reads, "
+                          f"{sum(eb.total_bytes for eb in ebs)} bytes",
                           file=sys.stderr)
     finally:
-        writer.close()
-    stats.input_bytes = _file_size(path)
+        for w in writers:
+            w.close()
+    stats.input_bytes = sum(_file_size(p) for p in cfg.inputs)
     stats.output_bytes = sum(stats.stream_bytes.values())
     stats.wall_s = time.monotonic() - t0
     return stats
 
 
 def _groups(blocks: Iterator, D: int, done) -> Iterator[List]:
-    """Parsed blocks in groups of D (the last may be shorter), skipping
-    the block ids in ``done`` (already in a resumed triplet)."""
+    """Parsed blocks (or pairs of blocks) in groups of D (the last may be
+    shorter), skipping the block ids in ``done`` (already in a resumed
+    triplet)."""
     group = []
     while True:
         with stage("parse FASTQ"):
-            block = next(blocks, None)
-        if block is None:
+            item = next(blocks, None)
+        if item is None:
             break
-        if block.block_id in done:
+        first = item[0] if isinstance(item, tuple) else item
+        if first.block_id in done:
             continue
-        group.append(block)
+        group.append(item)
         if len(group) == D:
             yield group
             group = []
@@ -105,10 +174,8 @@ def _groups(blocks: Iterator, D: int, done) -> Iterator[List]:
         yield group
 
 
-def check_decode_config(cfg: Config, meta: Dict) -> None:
+def check_decode_config(cfg: Config) -> None:
     """Raise NotImplementedError outside the ported decode slice."""
-    if meta.get("paired"):
-        raise NotImplementedError("paired-end: ROADMAP.md Queue 1 item 12")
     if cfg.delta_on_device:
         raise NotImplementedError(
             "--delta-device decode: ROADMAP.md Queue 1 item 15")
@@ -119,50 +186,71 @@ def check_decode_config(cfg: Config, meta: Dict) -> None:
 
 
 def decompress(cfg: Config, device) -> RunStats:
-    """Decompress the triplet named by ``cfg.inputs[0]`` to FASTQ."""
+    """Decompress the triplet named by ``cfg.inputs[0]`` to FASTQ; a
+    paired triplet (either mate's file names it) to ``<output>_1.fastq``
+    and ``<output>_2.fastq`` in lockstep, record i of one pairing with
+    record i of the other.  Each mate has its own decoder (and
+    template-name counter)."""
     t0 = time.monotonic()
+    check_decode_config(cfg)
     (path,) = cfg.inputs
     reader = container.TripletReader(path)
-    check_decode_config(cfg, reader.meta)
-    dec = BlockDecoder(reader.meta, device, keep_order=cfg.keep_order)
-    stats = RunStats(mode="decompress", device=str(dec.device))
-    if cfg.output == "-":
-        out_path = None
-        out = sys.stdout.buffer
+    if reader.meta.get("paired"):
+        readers = [reader if reader.mate == m else container.TripletReader(
+            container.part_paths(reader.prefix, 0, m)["r"]) for m in (1, 2)]
+        paths = [f"{cfg.output}_{m}.fastq" for m in (1, 2)]
     else:
-        out_path = cfg.output if cfg.output.endswith(".fastq") \
-            else cfg.output + ".fastq"
-        out = open(out_path, "wb")
-    try:
+        readers = [reader]
+        paths = [None if cfg.output == "-" else cfg.output
+                 if cfg.output.endswith(".fastq") else cfg.output + ".fastq"]
+    decs = [BlockDecoder(reader.meta, device, keep_order=cfg.keep_order)
+            for _ in readers]
+    stats = RunStats(mode="decompress", device=str(decs[0].device))
+    with contextlib.ExitStack() as files:
+        outs = []
+        for p in paths:
+            if p is None:
+                outs.append(sys.stdout.buffer)
+                files.callback(sys.stdout.buffer.flush)
+            else:
+                outs.append(files.enter_context(open(p, "wb")))
         group = []
-        for _, payloads in reader.iter_blocks():
+        for payloads in _lockstep(readers):
             group.append(payloads)
             if len(group) == DECODE_GROUP:
-                _emit(dec.decode_blocks(group), out, stats)
+                _decode_group(group, decs, outs, stats)
                 group = []
         if group:
-            _emit(dec.decode_blocks(group), out, stats)
-    finally:
-        if out_path is None:
-            out.flush()
-        else:
-            out.close()
-    stats.output_bytes = _file_size(out_path) if out_path else 0
+            _decode_group(group, decs, outs, stats)
+    stats.output_bytes = sum(_file_size(p) for p in paths)
     stats.wall_s = time.monotonic() - t0
     return stats
 
 
-def _emit(blocks, out, stats: RunStats) -> None:
-    for b in blocks:
-        with stage("render FASTQ"):
-            buf = fastq.render_fastq_records(b.seq, b.qual, b.lengths,
-                                             b.n_reads, b.exc_pos,
-                                             b.exc_byte, b.names, b.plus)
-        with stage("write"):
-            if buf is not None:
-                out.write(buf)
-        stats.n_reads += b.n_reads
-        stats.n_blocks += 1
+def _lockstep(readers) -> Iterator[List[Dict[str, bytes]]]:
+    """Each block's payloads from every mate's triplet; the mates must
+    hold the same block ids in the same order."""
+    for items in itertools.zip_longest(*(r.iter_blocks() for r in readers)):
+        if None in items or len({bid for bid, _ in items}) != 1:
+            raise ValueError("mate triplets disagree on block order")
+        yield [payloads for _, payloads in items]
+
+
+def _decode_group(group, decs, outs, stats: RunStats) -> None:
+    """A group of up to DECODE_GROUP blocks: one K4 launch per mate, the
+    mates one after the other, so one mate's decode buffers are held at
+    a time (K4's output is about 1 GB per group of 4 full blocks)."""
+    for c, (dec, out) in enumerate(zip(decs, outs)):
+        for b in dec.decode_blocks([payloads[c] for payloads in group]):
+            with stage("render FASTQ"):
+                buf = fastq.render_fastq_records(b.seq, b.qual, b.lengths,
+                                                 b.n_reads, b.exc_pos,
+                                                 b.exc_byte, b.names, b.plus)
+            with stage("write"):
+                if buf is not None:
+                    out.write(buf)
+            stats.n_reads += b.n_reads
+    stats.n_blocks += len(group)
 
 
 def _file_size(path) -> int:

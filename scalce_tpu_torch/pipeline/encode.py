@@ -3,15 +3,17 @@ full-device placement).
 
 Per block: stage A (unpack the 2-bit upload, canonical cores, sort
 keys, one stable multi-key sort, permute), stage B (aligned-predecessor
-delta of the sorted sequences; quality grids and histogram), then the
-host assembly of the ``n``/``r``/``q`` payloads.  Every payload byte is
-the reference's for the same block and Config.
+delta of the sorted sequences; the lossy quality map, if any; quality
+grids and histogram), then the host assembly of the ``n``/``r``/``q``
+payloads.  Paired-end: mate 2 computes its own cores but follows mate
+1's permutation.  Every payload byte is the reference's for the same
+block and Config.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,15 +36,8 @@ _EVEN = 0x55555555
 
 def check_encode_config(cfg: Config) -> None:
     """Raise NotImplementedError for a Config outside the ported slice
-    (single-end, lossless, full-device placement, hash dictionary, short
-    reads, one host), naming the ROADMAP.md Queue 1 item that will add
-    it."""
-    if cfg.paired:
-        raise NotImplementedError(
-            "paired-end, also under --data-parallel: ROADMAP.md Queue 1 "
-            "item 12")
-    if cfg.lossy_pct:
-        raise NotImplementedError("lossy -p: ROADMAP.md Queue 1 item 13")
+    (full-device placement, hash dictionary, short reads, one host),
+    naming the ROADMAP.md Queue 1 item that will add it."""
     if cfg.dict_mode != "hash":
         raise NotImplementedError(
             f"dict_mode {cfg.dict_mode!r}: ROADMAP.md Queue 1 item 14")
@@ -57,8 +52,30 @@ def check_encode_config(cfg: Config) -> None:
             "item 11")
     if cfg.n_hosts > 1:
         raise NotImplementedError(
-            "multi-host (n_hosts > 1, --merge-hosts): ROADMAP.md Queue 1 "
-            "item 16")
+            "multi-host (n_hosts > 1, --merge-hosts), single-end or "
+            "paired: ROADMAP.md Queue 1 item 16")
+
+
+def device_qual_map(qual_map, device) -> Optional[torch.Tensor]:
+    """The lossy quality map (uint8 ``[256]``) on ``device``, or None
+    for no map or the identity (lossless: no gather at all)."""
+    if qual_map is None:
+        return None
+    qual_map = np.asarray(qual_map, np.uint8)
+    if np.array_equal(qual_map, np.arange(256, dtype=np.uint8)):
+        return None
+    return torch.from_numpy(qual_map.copy()).to(device)
+
+
+def remap_qualities(qual: torch.Tensor, qual_map: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
+    """A uint8 quality grid through the lossy map: one gather from the
+    256-entry LUT with int32 indices (an int64 index grid of a 262,144 x
+    128 block would be 268 MB).  None is the identity."""
+    if qual_map is None:
+        return qual
+    idx = qual.reshape(-1).to(torch.int32)
+    return qual_map.index_select(0, idx).reshape(qual.shape)
 
 
 def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -184,25 +201,51 @@ def _device_stage_a(seq_packed, qual, lengths, n_reads: int, exc_pos,
     return perm, codes_s, qual_s, len_s, ck_s, cp_s, rc_s
 
 
+def _device_stage_a2(seq_packed, qual, lengths, exc_pos, perm, k: int,
+                     seed: int):
+    """Mate-2 stage A: its own cores (they align its delta: adjacent
+    pairs usually overlap on mate 2 too), then mate 1's permutation in
+    place of a sort, so pairs stay line-synchronized."""
+    lengths, codes_o, ck, cp, is_rc = _stage_a_prologue(
+        seq_packed, lengths, exc_pos, k, seed)
+    return reorder.apply_permutation(perm, codes_o, qual, lengths, ck, cp,
+                                     is_rc)
+
+
 def _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s, rc_s, n_reads: int,
-                    order: int):
-    """Stage B: predecessor delta + the quality symbol/context grids (the
-    caller counts them: K2 per block, or K6 per data-parallel group)."""
+                    order: int, qual_map: Optional[torch.Tensor] = None):
+    """Stage B: predecessor delta + the (lossy-remapped) quality
+    symbol/context grids (the caller counts them: K2 per block, or K6
+    per data-parallel group)."""
     delta = _delta_seq(codes_s, len_s, ck_s, cp_s, n_reads)
     delta["rc_bits"] = _pack_bits(rc_s)
-    sym, ctx = qualities.sym_ctx_grids(qual_s, len_s, order)
+    sym, ctx = qualities.sym_ctx_grids(remap_qualities(qual_s, qual_map),
+                                       len_s, order)
     return delta, sym, ctx
 
 
 def _encode_core(seq_packed, qual, lengths, n_reads: int, exc_pos, k: int,
-                 seed: int, order: int):
+                 seed: int, order: int,
+                 qual_map: Optional[torch.Tensor] = None):
     """Stages A and B of one block -> ``(perm, delta, len_s, sym, ctx)``:
     the reference's ``_encode_core`` without its histogram, which a
     data-parallel group takes over all its blocks at once."""
     perm, codes_s, qual_s, len_s, ck_s, cp_s, rc_s = _device_stage_a(
         seq_packed, qual, lengths, n_reads, exc_pos, k, seed)
     delta, sym, ctx = _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s,
-                                      rc_s, n_reads, order)
+                                      rc_s, n_reads, order, qual_map)
+    return perm, delta, len_s, sym, ctx
+
+
+def _encode_core_mate2(seq_packed, qual, lengths, n_reads: int, exc_pos,
+                       perm, k: int, seed: int, order: int,
+                       qual_map: Optional[torch.Tensor] = None):
+    """Mate 2's counterpart of :func:`_encode_core`, following mate 1's
+    ``perm`` (returned first, as mate 2's payloads store it)."""
+    codes_s, qual_s, len_s, ck_s, cp_s, rc_s = _device_stage_a2(
+        seq_packed, qual, lengths, exc_pos, perm, k, seed)
+    delta, sym, ctx = _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s,
+                                      rc_s, n_reads, order, qual_map)
     return perm, delta, len_s, sym, ctx
 
 
@@ -234,12 +277,14 @@ class EncodedBlock:
 
 class BlockEncoder:
     """Per-block encoder on one device (``"cuda"``, ``"cuda:N"``, or
-    ``"cpu"`` for the plain torch versions)."""
+    ``"cpu"`` for the plain torch versions), with the lossy quality map
+    ``qual_map`` (uint8 ``[256]``; None or the identity: lossless)."""
 
-    def __init__(self, cfg: Config, device):
+    def __init__(self, cfg: Config, device, qual_map=None):
         check_encode_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.qual_map = device_qual_map(qual_map, self.device)
 
     def upload(self, block: ReadBlock) -> Dict[str, torch.Tensor]:
         """H2D: host-packed 2-bit sequences, lengths, exception
@@ -262,10 +307,42 @@ class BlockEncoder:
         with stage("stage B"):
             delta, sym, ctx = _device_stage_b(
                 codes_s, qual_s, len_s, ck_s, cp_s, rc_s, block.n_reads,
-                cfg.qual_context_order)
+                cfg.qual_context_order, self.qual_map)
             counts = qualities.slab_histogram(sym, ctx,
                                               cfg.qual_context_order)
         return perm, delta, len_s, sym, ctx, counts
+
+    def encode_device_pair(self, b1: ReadBlock, b2: ReadBlock):
+        """Paired-end device work: mate 1 as :meth:`encode_device`, then
+        mate 2 following mate 1's permutation.  Returns one tuple per
+        mate in :meth:`assemble`'s form (mate 2's holds mate 1's
+        permutation, which its payload stores)."""
+        cfg = self.cfg
+        out1 = self.encode_device(b1)
+        perm = out1[0]
+        with stage("upload"):
+            pre2 = self.upload(b2)
+        with stage("stage A (mate 2)"):
+            a2 = _device_stage_a2(pre2["seq"], pre2["qual"], pre2["len"],
+                                  pre2["exc"], perm, cfg.core_k,
+                                  cfg.dict_seed)
+        with stage("stage B (mate 2)"):
+            delta, sym, ctx = _device_stage_b(*a2, b2.n_reads,
+                                              cfg.qual_context_order,
+                                              self.qual_map)
+            counts = qualities.slab_histogram(sym, ctx,
+                                              cfg.qual_context_order)
+        return out1, (perm, delta, a2[2], sym, ctx, counts)
+
+    def assemble_pair(self, b1: ReadBlock, b2: ReadBlock, devout
+                      ) -> Tuple[EncodedBlock, EncodedBlock]:
+        out1, out2 = devout
+        return self.assemble(b1, out1), self.assemble(b2, out2)
+
+    def encode_block_pair(self, b1: ReadBlock, b2: ReadBlock
+                          ) -> Tuple[EncodedBlock, EncodedBlock]:
+        """Paired-end: mate 1 defines the permutation, mate 2 follows."""
+        return self.assemble_pair(b1, b2, self.encode_device_pair(b1, b2))
 
     def assemble(self, block: ReadBlock, devout) -> EncodedBlock:
         """Pass B of the quality stream, download, payload bytes."""

@@ -1,19 +1,22 @@
 """Where the time goes: per-stage wall times of one compress and one
 keep-order decompress through the port's drivers, and the device's busy
-share under ``torch.profiler``.
+share under ``torch.profiler``, for a single-end file, a pair (``-r``)
+and the single-end file lossy (``-p 30``).
 
     python -m scalce_tpu_torch.stage_profile     # repo root, on the card
 
-The input is ``chip_smoke.py``'s main file (1,148,576 x 100 bp,
-``synth_fastq(seed=42, genome_len=1_000_000, n_rate=0.001)``) under the
-slice's Config; :func:`profile` also takes a smaller file and the CPU.
-Runs, in order: a warm-up (first-use costs: library load, CUDA
-context); an untimed run whose wall clock is the end-to-end
-number; a run with every stage synchronized and timed
+The inputs are ``chip_smoke.py``'s (phases 4, 7 and 8): the main file
+(1,148,576 x 100 bp, ``synth_fastq(seed=42, genome_len=1_000_000,
+n_rate=0.001)``) and a pair of such files (``synth_pair``, same
+parameters), under the slice's Config; :func:`profile` also takes fewer
+reads and the CPU.  Runs, per case and in order: a warm-up (first-use
+costs: library load, CUDA context); an untimed run whose wall clock is
+the end-to-end number; a run with every stage synchronized and timed
 (:mod:`scalce_tpu_torch.timing`); on CUDA, a run under ``torch.profiler``
 whose device events give the busy time (the union of their intervals)
 and the device time per kernel or copy.  Each decompress must give the
-input bytes back.  The last line of the output is one JSON object with
+input bytes back (lossy: the names and sequences, and qualities of the
+input's lengths).  The last line of the output is one JSON object with
 every number printed.
 """
 
@@ -25,12 +28,12 @@ import os
 import subprocess
 import tempfile
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from scalce_tpu.config import Config
-from scalce_tpu.utils.synth import synth_fastq
+from scalce_tpu.utils.synth import synth_fastq, synth_pair
 from scalce_tpu_torch import timing
 from scalce_tpu_torch.device import resolve_device
 from scalce_tpu_torch.pipeline import driver
@@ -44,19 +47,40 @@ SLICE = dict(block_reads=1 << 18, max_read_len=128, qual_T_target=2048,
              core_on_device=True, delta_on_device=True, qual_on_device=True,
              qual_context_order=1, dict_mode="hash", backend="gz", threads=1)
 
+#: the profiled cases: Config fields on top of SLICE
+CASES = {"single": {}, "paired": {"paired": True}, "lossy": {"lossy_pct": 30}}
 
-def _run(tmp: str, src: str, data: bytes, block_reads: int, device,
-         staged: bool = False) -> Dict[str, Dict]:
-    """One compress and one keep-order decompress: each one's wall
-    seconds and, when ``staged``, its seconds per stage (the rest of the
-    wall -- setup, container open and close -- is ``other``)."""
-    out = os.path.join(tmp, "p")
-    cfgs = {"compress": Config(inputs=(src,), output=out,
-                               **{**SLICE, "block_reads": block_reads}),
-            "decompress": Config(mode="decompress",
-                                 inputs=(out + ".00.scalcen",),
-                                 output=os.path.join(tmp, "d"),
-                                 keep_order=True, qual_on_device=True)}
+
+def _check(got: bytes, want: bytes, lossy: bool) -> None:
+    """A keep-order decompress against its input: equal bytes, or under
+    ``lossy`` equal names, sequences and '+' lines, and qualities of the
+    input's lengths."""
+    if not lossy:
+        ok = got == want
+    else:
+        g, w = got.split(b"\n"), want.split(b"\n")
+        ok = len(g) == len(w) and all(
+            a == b if i % 4 != 3 else len(a) == len(b)
+            for i, (a, b) in enumerate(zip(g, w)))
+    if not ok:
+        raise AssertionError("keep-order decompress != input")
+
+
+def _run(tmp: str, case: str, srcs: Sequence[str], datas: Sequence[bytes],
+         block_reads: int, device, staged: bool = False) -> Dict[str, Dict]:
+    """One compress and one keep-order decompress of ``case``: each one's
+    wall seconds and, when ``staged``, its seconds per stage (the rest of
+    the wall -- setup, container open and close -- is ``other``)."""
+    extra = CASES[case]
+    out = os.path.join(tmp, case)
+    dec = os.path.join(tmp, case + "_d")
+    first = ".00_1.scalcen" if extra.get("paired") else ".00.scalcen"
+    cfgs = {"compress": Config(inputs=tuple(srcs), output=out,
+                               **{**SLICE, "block_reads": block_reads},
+                               **extra),
+            "decompress": Config(mode="decompress", inputs=(out + first,),
+                                 output=dec, keep_order=True,
+                                 qual_on_device=True)}
     result = {}
     for name, cfg in cfgs.items():
         with timing.collect(device) if staged else \
@@ -68,9 +92,11 @@ def _run(tmp: str, src: str, data: bytes, block_reads: int, device,
         if staged:
             stages["other"] = wall - sum(stages.values())
         result[name] = {"wall_s": wall, "stages_s": stages}
-    with open(os.path.join(tmp, "d.fastq"), "rb") as fh:
-        if fh.read() != data:
-            raise AssertionError("keep-order decompress != input")
+    paths = [f"{dec}_{m}.fastq" for m in (1, 2)] if extra.get("paired") \
+        else [dec + ".fastq"]
+    for path, data in zip(paths, datas):
+        with open(path, "rb") as fh:
+            _check(fh.read(), data, bool(extra.get("lossy_pct")))
     return result
 
 
@@ -96,7 +122,7 @@ def _kind(name: str) -> str:
         else "torch kernels"
 
 
-def _profiled(tmp, src, data, block_reads, device) -> Optional[Dict]:
+def _profiled(tmp, case, srcs, datas, block_reads, device) -> Optional[Dict]:
     """Device busy seconds (union of the device events' intervals), and
     device seconds by kind and by event name (the 12 largest, names cut
     to 80 characters), over one compress + decompress."""
@@ -105,7 +131,7 @@ def _profiled(tmp, src, data, block_reads, device) -> Optional[Dict]:
                   profiler.ProfilerActivity.CUDA]
     with profiler.profile(activities=activities, acc_events=True) as prof:
         t0 = time.perf_counter()
-        _run(tmp, src, data, block_reads, device)
+        _run(tmp, case, srcs, datas, block_reads, device)
         wall = time.perf_counter() - t0
     spans, per_name, per_kind = [], {}, {}
     for ev in prof.events():
@@ -124,9 +150,41 @@ def _profiled(tmp, src, data, block_reads, device) -> Optional[Dict]:
             "top_device_s": dict(top)}
 
 
+def _report(case: str, res: Dict, card: str) -> None:
+    """Print one case's walls, stage tables and device busy share."""
+    mb = res["input_bytes"] / 1e6
+    for name in ("compress", "decompress"):
+        wall = res["untimed"][name]["wall_s"]
+        print(f"{case} {name}: {wall:.3f} s = {mb / wall:.2f} MB/s ({card})")
+        staged = res["staged"][name]
+        print(f"  staged run {staged['wall_s']:.3f} s:")
+        for st, s in sorted(staged["stages_s"].items(),
+                            key=lambda kv: -kv[1]):
+            print(f"    {st:<18} {s:8.3f} s "
+                  f"{100 * s / staged['wall_s']:6.1f}%")
+    prof = res.get("profiled")
+    if prof is not None:
+        busy = prof["busy_s"]
+        untimed = sum(r["wall_s"] for r in res["untimed"].values())
+        print(f"{case} profiled run {prof['wall_s']:.3f} s: device busy "
+              f"{busy:.4f} s = {100 * busy / prof['wall_s']:.1f}% of the "
+              f"profiled wall, {100 * busy / untimed:.1f}% of the untimed "
+              f"run's {untimed:.3f} s ({prof['device_events']} device "
+              f"events)")
+        for name, s in sorted(prof["by_kind_s"].items()):
+            print(f"    {s:8.4f} s  {name}")
+        print("  largest device events:")
+        for name, s in prof["top_device_s"].items():
+            print(f"    {s:8.4f} s  {name}")
+    elif "profiled" in res:
+        print(f"{case} profiled run: no device events recorded (busy share "
+              f"not measured)")
+
+
 def profile(device="cuda", reads: int = 1_148_576,
             block_reads: int = SLICE["block_reads"]) -> Dict:
-    """Run the four runs above, print the tables, return the numbers."""
+    """Run the four runs above for each case, print the tables, return
+    the numbers."""
     device = resolve_device(device)
     card = "cpu"
     if device.type == "cuda":       # name and power limit
@@ -135,48 +193,30 @@ def profile(device="cuda", reads: int = 1_148_576,
              "--format=csv,noheader", f"--id={device.index}"],
             capture_output=True, text=True, check=True).stdout.strip()
 
-    result = {"device": card, "reads": reads, "block_reads": block_reads}
+    result = {"device": card, "reads": reads, "block_reads": block_reads,
+              "cases": {}}
     with tempfile.TemporaryDirectory() as tmp:
-        src = os.path.join(tmp, "in.fastq")
-        data = synth_fastq(reads, 100, seed=42, genome_len=1_000_000,
-                           n_rate=0.001)
-        with open(src, "wb") as fh:
-            fh.write(data)
-        result["input_bytes"] = len(data)
-        _run(tmp, src, data, block_reads, device)               # warm-up
-        result["untimed"] = _run(tmp, src, data, block_reads, device)
-        result["staged"] = _run(tmp, src, data, block_reads, device,
-                                staged=True)
-        if device.type == "cuda":
-            result["profiled"] = _profiled(tmp, src, data, block_reads,
-                                           device)
-
-    mb = len(data) / 1e6
-    for name in ("compress", "decompress"):
-        wall = result["untimed"][name]["wall_s"]
-        print(f"{name}: {wall:.3f} s = {mb / wall:.2f} MB/s ({card})")
-        staged = result["staged"][name]
-        print(f"  staged run {staged['wall_s']:.3f} s:")
-        for st, s in sorted(staged["stages_s"].items(),
-                            key=lambda kv: -kv[1]):
-            print(f"    {st:<18} {s:8.3f} s "
-                  f"{100 * s / staged['wall_s']:6.1f}%")
-    prof = result.get("profiled")
-    if prof is not None:
-        busy = prof["busy_s"]
-        untimed = sum(r["wall_s"] for r in result["untimed"].values())
-        print(f"profiled run {prof['wall_s']:.3f} s: device busy {busy:.4f} s"
-              f" = {100 * busy / prof['wall_s']:.1f}% of the profiled wall, "
-              f"{100 * busy / untimed:.1f}% of the untimed run's "
-              f"{untimed:.3f} s ({prof['device_events']} device events)")
-        for name, s in sorted(prof["by_kind_s"].items()):
-            print(f"    {s:8.4f} s  {name}")
-        print("  largest device events:")
-        for name, s in prof["top_device_s"].items():
-            print(f"    {s:8.4f} s  {name}")
-    elif device.type == "cuda":
-        print("profiled run: no device events recorded (busy share not "
-              "measured)")
+        kw = dict(seed=42, genome_len=1_000_000, n_rate=0.001)
+        files = {"main": [synth_fastq(reads, 100, **kw)],
+                 "pair": list(synth_pair(reads, 100, **kw))}
+        paths = {}
+        for key, datas in files.items():
+            paths[key] = [os.path.join(tmp, f"{key}{i}.fastq")
+                          for i in range(len(datas))]
+            for path, data in zip(paths[key], datas):
+                with open(path, "wb") as fh:
+                    fh.write(data)
+        for case, extra in CASES.items():
+            key = "pair" if extra.get("paired") else "main"
+            args = (tmp, case, paths[key], files[key], block_reads, device)
+            res = {"input_bytes": sum(map(len, files[key]))}
+            _run(*args)                                       # warm-up
+            res["untimed"] = _run(*args)
+            res["staged"] = _run(*args, staged=True)
+            if device.type == "cuda":
+                res["profiled"] = _profiled(*args)
+            result["cases"][case] = res
+            _report(case, res, card)
     print(json.dumps(result))
     return result
 

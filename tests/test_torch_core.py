@@ -13,6 +13,10 @@ from scalce_tpu.ops import core_pallas
 from scalce_tpu.ops import reorder as ref_reorder
 from scalce_tpu_torch.ops import bitops, core_match, core_rank, reorder
 
+# xdist runs test files side by side on the CPU: one intra-op thread
+# per worker keeps torch's thread pools from oversubscribing the cores
+torch.set_num_threads(1)
+
 K, SEED = 12, 0x5CA1CE
 
 

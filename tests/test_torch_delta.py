@@ -9,12 +9,17 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from scalce_tpu.io import fastq
 from scalce_tpu.pipeline import encode as ref_encode
 from scalce_tpu.utils.synth import synth_fastq
 from scalce_tpu_torch import convert
 from scalce_tpu_torch.pipeline import encode
+
+# xdist runs test files side by side on the CPU: one intra-op thread
+# per worker keeps torch's thread pools from oversubscribing the cores
+torch.set_num_threads(1)
 
 K, SEED = 12, 0x5CA1CE
 B = 256

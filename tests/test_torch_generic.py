@@ -16,6 +16,10 @@ from scalce_tpu_torch.ops import histogram, rans
 from scalce_tpu_torch.ops.rans_encode_flat import (encode_scan_flat,
                                                    encode_scan_flat_plain)
 
+# xdist runs test files side by side on the CPU: one intra-op thread
+# per worker keeps torch's thread pools from oversubscribing the cores
+torch.set_num_threads(1)
+
 
 #: awkward sizes: S not a tile multiple, cells not a multiple of the
 #: kernel's lane factor, fewer cells than one lane row, one symbol

@@ -1,6 +1,6 @@
 """scalce_tpu_torch's CUDA kernels against their plain torch versions,
-and the card's compress (single-device and data-parallel) against the
-CPU's, on small and awkward shapes.
+and the card's compress (single-device and data-parallel; single-end,
+paired and lossy) against the CPU's, on small and awkward shapes.
 
 These need a CUDA card and skip without one.  They import no jax, so on
 a machine with the card but without jax they run as
@@ -177,3 +177,56 @@ def test_card_compress_matches_cpu(cuda, tmp_path):
         output=os.path.join(tmp_path, "d"), keep_order=True,
         qual_on_device=True), "cuda")
     assert open(os.path.join(tmp_path, "d.fastq"), "rb").read() == data
+
+
+@pytest.mark.parametrize("lossy_pct", [0, 30])
+@pytest.mark.parametrize("data_parallel", [False, True])
+def test_card_paired_matches_cpu(cuda, tmp_path, lossy_pct, data_parallel):
+    """A ragged pair with N bases, lossless or lossy: the card (one
+    device, or every card in groups with a tail group) writes the CPU's
+    single-device _1/_2 triplets, and the card's keep-order decompress
+    gives the CPU's FASTQ pair."""
+    import scalce_tpu_torch
+    from scalce_tpu.config import Config
+    from scalce_tpu.utils.synth import synth_pair
+    mates = synth_pair(1300, 100, seed=6, var_len=True, n_rate=0.01)
+    paths = tuple(os.path.join(tmp_path, f"m{m}.fastq") for m in (1, 2))
+    for path, data in zip(paths, mates):
+        with open(path, "wb") as f:
+            f.write(data)
+    kw = dict(inputs=paths, paired=True, block_reads=256, max_read_len=128,
+              core_on_device=True, delta_on_device=True, qual_on_device=True,
+              qual_context_order=1, backend="gz", threads=1,
+              lossy_pct=lossy_pct, sample_size=300)
+    outs = {}
+    for dev, dp in (("cpu", False), ("cuda", data_parallel)):
+        prefix = os.path.join(tmp_path, dev)
+        scalce_tpu_torch.compress(Config(output=prefix, data_parallel=dp,
+                                         **kw), dev)
+        outs[dev] = [open(f"{prefix}.00_{m}.scalce{s}", "rb").read()
+                     for m in (1, 2) for s in "nrq"]
+        scalce_tpu_torch.decompress(Config(
+            mode="decompress", inputs=(prefix + ".00_2.scalcen",),
+            output=prefix + "_d", keep_order=True, qual_on_device=True), dev)
+        outs[dev + "_d"] = [open(f"{prefix}_d_{m}.fastq", "rb").read()
+                            for m in (1, 2)]
+    assert outs["cpu"] == outs["cuda"]
+    assert outs["cpu_d"] == outs["cuda_d"]
+    assert (outs["cuda_d"] == list(mates)) == (lossy_pct == 0)
+
+
+def test_card_lossy_hist_allreduce(cuda):
+    """Every card, two blocks each: the summed K6 histograms equal a
+    numpy bincount of the valid cells."""
+    from scalce_tpu_torch.parallel import mesh
+    cards = mesh.local_mesh(device="cuda")
+    rng = np.random.default_rng(8)
+    D, B, L = 2 * len(cards), 300, 160
+    qual = rng.integers(33, 127, (D, B, L)).astype(np.uint8)
+    lengths = rng.integers(0, L + 1, (D, B)).astype(np.int32)
+    got = mesh.lossy_hist_allreduce(qual, lengths, cards)
+    assert got.device == cards[0] and got.dtype == torch.int32
+    valid = np.arange(L)[None, None, :] < lengths[:, :, None]
+    want = np.bincount(np.clip(qual.astype(np.int64) - 33, 0, 93)[valid],
+                       minlength=94)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)

@@ -23,6 +23,10 @@ from scalce_tpu_torch.parallel import mesh
 from scalce_tpu_torch.pipeline.encode import BlockEncoder
 from scalce_tpu_torch.streams import qualities
 
+# xdist runs test files side by side on the CPU: one intra-op thread
+# per worker keeps torch's thread pools from oversubscribing the cores
+torch.set_num_threads(1)
+
 SLICE = dict(block_reads=1 << 10, max_read_len=128, qual_T_target=2048,
              core_on_device=True, delta_on_device=True, qual_on_device=True,
              qual_context_order=1, dict_mode="hash", backend="gz",

@@ -5,8 +5,13 @@ accounts for each run's wall clock."""
 import json
 
 import pytest
+import torch
 
 from scalce_tpu_torch import stage_profile, timing
+
+# xdist runs test files side by side on the CPU: one intra-op thread
+# per worker keeps torch's thread pools from oversubscribing the cores
+torch.set_num_threads(1)
 
 COMPRESS_STAGES = {"parse FASTQ", "upload", "stage A", "stage B", "pass B",
                    "quality payload", "delta D2H", "seqs.payload",
@@ -35,15 +40,39 @@ def test_stage_profile_cpu(capsys):
     result = stage_profile.profile("cpu", reads=1500, block_reads=1024)
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
         == result
-    assert result["input_bytes"] > 0 and "profiled" not in result
-    for name, want in (("compress", COMPRESS_STAGES),
-                       ("decompress", DECOMPRESS_STAGES)):
-        run = result["staged"][name]
-        assert set(run["stages_s"]) == want
-        assert all(s >= 0 for k, s in run["stages_s"].items() if k != "other")
-        assert sum(run["stages_s"].values()) == pytest.approx(run["wall_s"])
-        assert result["untimed"][name]["wall_s"] > 0
-        assert result["untimed"][name]["stages_s"] == {}
+    extra = {"single": set(), "lossy": {"lossy preamble"},
+             "paired": {"stage A (mate 2)", "stage B (mate 2)"}}
+    assert set(result["cases"]) == set(extra)
+    for case, res in result["cases"].items():
+        assert res["input_bytes"] > 0 and "profiled" not in res
+        for name, want in (("compress", COMPRESS_STAGES | extra[case]),
+                           ("decompress", DECOMPRESS_STAGES)):
+            run = res["staged"][name]
+            assert set(run["stages_s"]) == want
+            assert all(s >= 0 for k, s in run["stages_s"].items()
+                       if k != "other")
+            assert sum(run["stages_s"].values()) \
+                == pytest.approx(run["wall_s"])
+            assert res["untimed"][name]["wall_s"] > 0
+            assert res["untimed"][name]["stages_s"] == {}
+    assert result["cases"]["paired"]["input_bytes"] \
+        > result["cases"]["single"]["input_bytes"]
+
+
+@pytest.mark.parametrize("lossy,got,ok", [
+    (False, b"@a\nACGT\n+\nIIII\n", True),
+    (False, b"@a\nACGT\n+\nIIIH\n", False),
+    (True, b"@a\nACGT\n+\n5555\n", True),
+    (True, b"@a\nACGA\n+\nIIII\n", False),
+    (True, b"@a\nACGT\n+\nIII\n", False),
+])
+def test_profile_checks_the_decompress(lossy, got, ok):
+    want = b"@a\nACGT\n+\nIIII\n"
+    if ok:
+        stage_profile._check(got, want, lossy)
+    else:
+        with pytest.raises(AssertionError):
+            stage_profile._check(got, want, lossy)
 
 
 @pytest.mark.parametrize("spans,want", [

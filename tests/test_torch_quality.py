@@ -18,6 +18,10 @@ from scalce_tpu_torch.models import entropy
 from scalce_tpu_torch.ops import hist, rans, rans_decode, rans_encode
 from scalce_tpu_torch.streams import qualities, seqs
 
+# xdist runs test files side by side on the CPU: one intra-op thread
+# per worker keeps torch's thread pools from oversubscribing the cores
+torch.set_num_threads(1)
+
 
 def _quals(seed, B, L, lmin):
     """Serially correlated qualities (order-1/2 contexts matter) with

@@ -16,9 +16,13 @@ import torch
 import scalce_tpu
 import scalce_tpu_torch
 from scalce_tpu.config import Config
-from scalce_tpu.utils.synth import synth_fastq
+from scalce_tpu.utils.synth import synth_fastq, synth_pair
 from scalce_tpu_torch import convert
 from scalce_tpu_torch.pipeline.encode import BlockEncoder
+
+# xdist runs test files side by side on the CPU: one intra-op thread
+# per worker keeps torch's thread pools from oversubscribing the cores
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE = dict(block_reads=1024, max_read_len=128, qual_T_target=2048,
@@ -101,6 +105,10 @@ def test_cli_round_trip_imports_no_jax(tmp_path):
     src = os.path.join(tmp_path, "in.fastq")
     with open(src, "wb") as f:
         f.write(synth_fastq(600, 100, seed=3, var_len=True, n_rate=0.01))
+    mates = [os.path.join(tmp_path, f"m{m}.fastq") for m in (1, 2)]
+    for path, data in zip(mates, synth_pair(600, 100, seed=4)):
+        with open(path, "wb") as f:
+            f.write(data)
     script = textwrap.dedent(f"""
         import sys
         import scalce_tpu_torch.parallel.mesh
@@ -112,21 +120,38 @@ def test_cli_round_trip_imports_no_jax(tmp_path):
               "-c", "gz", "-o", out + "/p", {src!r}])
         main(["--device", "cpu", "-d", "--keep-order", "-o", out + "/d",
               out + "/o.00.scalcen"])
+        main(["--device", "cpu", "-r", "--block-reads", "256", "-c", "gz",
+              "-o", out + "/r", *{mates!r}])
+        main(["--device", "cpu", "-d", "--keep-order", "-o", out + "/rd",
+              out + "/r.00_1.scalcen"])
+        main(["--device", "cpu", "-p", "30", "-S", "300", "--block-reads",
+              "256", "-c", "gz", "-o", out + "/l", {src!r}])
+        main(["--device", "cpu", "-d", "--keep-order", "-o", out + "/ld",
+              out + "/l.00.scalcen"])
         assert "jax" not in sys.modules, "jax was imported"
         assert open(out + "/d.fastq", "rb").read() == open({src!r},
                                                            "rb").read()
         for s in "nrq":
             assert open(out + "/o.00.scalce" + s, "rb").read() == \\
                 open(out + "/p.00.scalce" + s, "rb").read()
+        for m, path in zip((1, 2), {mates!r}):
+            assert open(out + f"/rd_{{m}}.fastq", "rb").read() == \\
+                open(path, "rb").read()
+        lossy = open(out + "/ld.fastq", "rb").read().split(b"\\n")
+        exact = open({src!r}, "rb").read().split(b"\\n")
+        assert len(lossy) == len(exact) and lossy != exact
+        assert [x for i, x in enumerate(lossy) if i % 4 != 3] == \\
+            [x for i, x in enumerate(exact) if i % 4 != 3]
     """)
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    env["OMP_NUM_THREADS"] = "1"      # as torch.set_num_threads above
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
 
 
 @pytest.mark.parametrize("change", [
-    dict(paired=True, inputs=("a", "b")), dict(lossy_pct=30),
+    dict(dict_mode="lcp"), dict(paired=True, inputs=("a", "b"), n_hosts=2),
     dict(dict_mode="lut"), dict(core_on_device=None),
     dict(qual_on_device=False, delta_on_device=False, core_on_device=False),
     dict(data_parallel=True, n_hosts=2), dict(n_hosts=2),
