@@ -7,15 +7,21 @@ Phases (the first failure exits non-zero; no phase is caught):
   1. card: name and power limit; no CUDA device -> exit 1
   2. build: the CUDA kernels (csrc/*.cu, nvcc, sm_90a)
   3. kernels: K1-K4 against their plain torch versions on one real
-     262144-read block (B = 262144, L = 128, T = 2048, N = 16384; K4 with
-     D = 4 at order 1, and at orders 2 and 3), and K5/K6 at the shapes of
-     a data-parallel group of the file's first 4 blocks (K6: 134,217,728
-     indices into 286,136 cells; K5: T = 2048, N = 65536), exact
-     equality; ms per launch of both, timed with CUDA events
+     262144-read block (B = 262144, L = 128, T = 2048, N = 16384; K4
+     decode_quals in the decompress path's groups of D = 4 and 1 at order
+     1; K2, K3 and K4 (decode_quals and decode_scan) also at orders 2 and
+     3), and K5/K6 at the shapes of a data-parallel group of the file's
+     first 4 blocks (K6: 134,217,728 indices into 286,136 cells; K5:
+     T = 2048, N = 65536) and of its first block alone, exact equality;
+     per kernel, timed with CUDA events: the wrapper, the launch alone
+     (each kernel's ``prepare``), the plain version, and the one PyTorch
+     call that computes the same function where there is one (K2, K6:
+     ``torch.bincount``); and its bound from this run's bytes and
+     operations, which the launch alone must not beat
   4. main path: compress a 1,148,576-read synthetic FASTQ on the card
      (single-end, lossless, every stage on the device, order 1, gz),
      decompress it in keep-order, require the input bytes back and K1-K4
-     launched
+     launched (K4: decode_quals)
   5. card vs CPU: a ragged file with N bases compressed on the card and
      with the plain torch versions on the CPU must give identical
      triplets (tests pin the CPU path to scalce_tpu byte for byte)
@@ -23,7 +29,7 @@ Phases (the first failure exits non-zero; no phase is caught):
      in groups of 4 blocks (4 per card on one card: one group and a
      tail) must give the single-device encoder's payloads, and the
      --data-parallel driver (one block per card) phase 4's triplet; K5
-     and K6 must have run
+     and K6 must have run in each, counted apart
   7. paired-end: a 2 x 1,148,576-read pair compressed on the card (-r)
      and decompressed in keep-order must give both files back, with K1-K4
      launched; the --data-parallel pair (K5 and K6 launched) must write
@@ -38,9 +44,12 @@ Phases (the first failure exits non-zero; no phase is caught):
 
 The line before the last is the card's name and power limit; the one
 before that is a JSON object with one entry per kernel (``launches``:
-phase 4's count for K1-K4, phase 6's for K5 and K6; phases 7 and 8 check
-their own counts); the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+phase 4's count for K1-K4, the phase-6 --data-parallel driver's for K5
+and K6, and their ``sharded_launches`` the ShardedEncoder's; phases 7
+and 8 check their own counts; ``ms`` the wrapper, ``kernel_ms`` the
+launch alone; K4's ``d1`` and K5's and K6's ``one_block`` the other
+shapes above); the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
+and nothing of scalce_tpu.
 """
 
 from __future__ import annotations
@@ -118,18 +127,104 @@ def counts(kernels: dict, names) -> dict:
 
 
 def write_fastq(path: str, n_reads: int, **kw) -> bytes:
-    from scalce_tpu.utils.synth import synth_fastq
+    from scalce_tpu_torch.utils.synth import synth_fastq
     data = synth_fastq(n_reads, 100, **kw)
     with open(path, "wb") as f:
         f.write(data)
     return data
 
 
+#: the card's peaks (H100 SXM datasheet, 700 W): HBM
+#: bytes per second, and 32-bit integer operations per second of the
+#: CUDA cores (the datasheet's 67 TFLOP/s float32 rate counts a fused
+#: multiply-add as two operations: one operation per lane and clock is
+#: half of it)
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 67e12 / 2
+#: integer operations each kernel must do per element, counted from its
+#: source (K1: per k-mer position, both strands' mix32 ranks and the
+#: reverse complement; K2: per grid cell; K3 and K4: per cell of a read,
+#: the context, table entry and state update; K5: per (lane, step); K6:
+#: per index).  Padding cells are not counted: the bound stays a bound.
+OPS_PER_ELEMENT = {"K1": 40, "K2": 6, "K3": 20, "K4": 25, "K5": 15, "K6": 4}
+
+
+def narrow_bytes(t: torch.Tensor) -> int:
+    """Bytes of ``t`` at the narrowest of 1, 2, 4 and 8 bytes per element
+    that holds this run's values; a tensor with a negative value keeps
+    its own width (it carries bit patterns)."""
+    if t.numel() == 0:
+        return 0
+    width = t.element_size()
+    if t.dtype != torch.bool and int(t.min()) >= 0:
+        top = int(t.max())
+        width = min(width, next(b for b in (1, 2, 4, 8) if top < 1 << 8 * b))
+    return t.numel() * width
+
+
+def bound(name: str, tensors_in, tensors_out, elements: int) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move (each input read once, each output written once,
+    each at the narrowest type that holds its values, so never more than
+    a launch moves) over the HBM rate and its integer operations over the
+    CUDA cores' rate."""
+    nbytes = sum(narrow_bytes(t) for t in (*tensors_in, *tensors_out))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = OPS_PER_ELEMENT[name] * elements / INT_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes, "bound_ops": OPS_PER_ELEMENT[name]
+            * elements}
+
+
+class Case:
+    """One kernel at one shape: the wrapper and its plain version on the
+    same arguments, the kernel's ``prepare`` (a launch alone, for the
+    kernel-only time), the single PyTorch call that computes the same
+    function, where there is one, and the bound from ``bound_in``, the
+    outputs and ``elements``."""
+
+    def __init__(self, name, wrapper, plain, args, prepare, iters,
+                 plain_iters, bound_in, elements, library=None):
+        self.name, self.wrapper, self.plain, self.args = (name, wrapper,
+                                                          plain, args)
+        self.prepare, self.iters, self.plain_iters = (prepare, iters,
+                                                      plain_iters)
+        self.bound_in, self.elements = bound_in, elements
+        self.library = library
+
+    def run(self) -> dict:
+        got = as_tuple(self.wrapper(*self.args))
+        ref = as_tuple(self.plain(*self.args))
+        torch.cuda.synchronize()
+        out = {"max_abs_err": max_abs_err(got, ref)}
+        out["ms"] = time_ms(lambda: self.wrapper(*self.args), self.iters)
+        launch = self.prepare(*self.args)[0]
+        out["kernel_ms"] = time_ms(launch, self.iters)
+        out["plain_ms"] = time_ms(lambda: self.plain(*self.args),
+                                  self.plain_iters)
+        out["library_ms"] = None
+        if self.library is not None:
+            out["library_ms"] = time_ms(self.library, self.iters)
+        out.update(bound(self.name.split()[0], self.bound_in, got,
+                         self.elements))
+        if out["kernel_ms"] < out["bound_ms"]:
+            raise AssertionError(f"{self.name}: the launch ({out['kernel_ms']}"
+                                 f" ms) beats its bound ({out['bound_ms']} "
+                                 f"ms)")
+        return out
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
 def check_kernels(blocks, dev, kernels) -> dict:
     """Phase 3: each kernel against its plain version at the slice's
-    shapes: K1-K4 from one real block, K5 and K6 from a data-parallel
-    group of ``blocks``."""
-    from scalce_tpu.config import Config
+    shapes, timed: K1-K4 from one real block (K4 in the main path's
+    groups of 4 blocks and of 1), K5 and K6 from a data-parallel group of
+    ``blocks`` and from one block; K2-K4 also at orders 2 and 3."""
+    from scalce_tpu_torch.config import Config
     from scalce_tpu_torch.models import entropy
     from scalce_tpu_torch.ops import (core_match, core_rank, hist,
                                       histogram, rans, rans_decode,
@@ -144,7 +239,7 @@ def check_kernels(blocks, dev, kernels) -> dict:
     pre = enc.upload(block)
     k, seed = cfg.core_k, cfg.dict_seed
     B, L = block.seq.shape
-    results = {}
+    cases = []
 
     codes = unpack_bases_u32(pre["seq"])
     exc = torch.zeros(B * L, dtype=torch.bool, device=dev)
@@ -152,96 +247,124 @@ def check_kernels(blocks, dev, kernels) -> dict:
     kmers = core_match.rolling_kmers(codes, k)
     invalid = core_match.window_invalid(exc.reshape(B, L), pre["len"], k)
     args = (kmers, invalid, k, seed)
-    results["K1"] = (core_rank.rank_argmin, core_rank.rank_argmin_plain,
-                     args, 20, 5)
+    cases.append(Case("K1", core_rank.rank_argmin, core_rank.rank_argmin_plain,
+                      args, core_rank.prepare, 20, 5, (kmers, invalid),
+                      kmers.numel()))
 
     _, _, qual_s, len_s, *_ = encode._device_stage_a(
         pre["seq"], pre["qual"], pre["len"], block.n_reads, pre["exc"], k,
         seed)
-    grids = {}
+    n_valid = int(len_s.sum())
+    T = qualities.pick_T(B, L, cfg.qual_T_target)
+    grids, tables = {}, {}
     for order in (1, 2, 3):
-        sym, ctx, counts = qualities.sym_ctx_hist(qual_s, len_s, order)
+        sym, ctx = qualities.sym_ctx_grids(qual_s, len_s, order)
+        R, PB, cd = qualities._slab_spec(order)
+        counts = hist.hist_ctx(sym, ctx, R, PB, cd, qualities.N_SYMS)
+        max_abs_err((counts,), (hist.hist_ctx_plain(sym, ctx, R, PB),))
         grids[order] = (sym, ctx, counts)
+        tables[order] = entropy.device_normalize(
+            counts, qualities.n_contexts(order), qualities.N_SYMS)
     sym, ctx, counts = grids[1]
     R, PB, cd = qualities._slab_spec(1)
-    results["K2"] = (lambda *a: (hist.hist_ctx(*a),),
-                     lambda *a: (hist.hist_ctx_plain(*a[:4], a[5]),),
-                     (sym, ctx, R, PB, cd, qualities.N_SYMS), 20, 5)
+    flat = torch.where(ctx == 0, 0, ctx * qualities.N_SYMS + sym).reshape(-1)
+    n_cells = qualities.n_contexts(1) * qualities.N_SYMS
+    cases.append(Case(
+        "K2", hist.hist_ctx, lambda *a: hist.hist_ctx_plain(*a[:4], a[5]),
+        (sym, ctx, R, PB, cd, qualities.N_SYMS), hist.prepare, 20, 5,
+        (sym, ctx), sym.numel(), library=lambda: torch.bincount(flat, minlength=n_cells)))
 
-    T = qualities.pick_T(B, L, cfg.qual_T_target)
-    freq, cum = entropy.device_normalize(counts, qualities.n_contexts(1),
-                                         qualities.N_SYMS)
-    results["K3"] = (rans_encode.encode_scan, rans_encode.encode_scan_plain,
-                     (sym, ctx, freq, cum, T), 10, 2)
+    freq, cum = tables[1]
+    cases.append(Case(
+        "K3", rans_encode.encode_scan, rans_encode.encode_scan_plain,
+        (sym, ctx, freq, cum, T, 1), rans_encode.prepare, 20, 2,
+        (sym, ctx, freq, cum), n_valid))
 
-    def decode_args(order):
-        s, c, n = grids[order]
-        f, cm = entropy.device_normalize(n, qualities.n_contexts(order),
-                                         qualities.N_SYMS)
-        st, w, e = rans_encode.encode_scan(s, c, f, cm, T)
-        packed, wc = rans.compact_emissions(w, e)
-        eq = qualities.finish_encoded(f, st, packed, wc, B, L, T, order)
-        x = qualities.decode_inputs([eq] * 4, [len_s.cpu().numpy()] * 4,
-                                    dev)
+    encoded = {}
+
+    def decode_args(order, D):
+        if order not in encoded:
+            s, c, _ = grids[order]
+            f, cm = tables[order]
+            st, w, e = rans_encode.encode_scan(s, c, f, cm, T, order)
+            if order != 1:
+                max_abs_err((st, w, e), rans_encode.encode_scan_plain(
+                    s, c, f, cm, T, order))
+            packed, wc = rans.compact_emissions(w, e)
+            encoded[order] = qualities.finish_encoded(f, st, packed, wc, B,
+                                                      L, T, order)
+        x = qualities.decode_inputs([encoded[order]] * D,
+                                    [len_s.cpu().numpy()] * D, dev)
         return (x["states"], x["words"], x["freq"], x["lengths"], order, T,
-                L), x["lengths"]
+                L)
 
-    dec_args, dec_lengths = decode_args(1)
-    results["K4"] = (lambda *a: (rans_decode.decode_scan(*a),),
-                     lambda *a: (rans_decode.decode_scan_plain(*a),),
-                     dec_args, 10, 1)
+    for D in (4, 1):
+        a = decode_args(1, D)
+        cases.append(Case(
+            "K4" if D == 4 else "K4 D=1", rans_decode.decode_quals,
+            rans_decode.decode_quals_plain, a, rans_decode.prepare, 20, 1,
+            a[:4], D * n_valid))
 
     # the data-parallel group: stage 1 of every block, then the stacked
-    # (ctx, sym) cells (K6) and the stacked tables' (f, cum) (K5)
-    _, _, _, gsym, gctx, gcounts = mesh.stage1(
-        mesh.upload_blocks(blocks, dev), [b.n_reads for b in blocks],
-        k, seed, 1)
-    C = qualities.n_contexts(1)
-    gctx = qualities.stacked_ctx(gctx, 1).reshape(-1)
-    gsym = gsym.reshape(-1)
-    n_cells = len(blocks) * C * qualities.N_SYMS
-    results["K6"] = (lambda *a: (histogram.histogram(*a),),
-                     lambda *a: (histogram.histogram_plain(*a),),
-                     (gctx * qualities.N_SYMS + gsym, n_cells), 20, 5)
-    gfreq, gcum = entropy.device_normalize(gcounts, C, qualities.N_SYMS)
-    f_all, c_all = rans.gather_tables(gsym, gctx, gfreq.reshape(-1),
-                                      gcum.reshape(-1), qualities.N_SYMS, T)
-    del gsym, gctx
-    results["K5"] = (rans_encode_flat.encode_scan_flat,
-                     rans_encode_flat.encode_scan_flat_plain,
-                     (f_all, c_all), 10, 1)
-    say(f"group of {len(blocks)} blocks: K6 S = {results['K6'][2][0].numel()}"
-        f" into {n_cells} cells; K5 [T, N] = {list(f_all.shape)}")
+    # (ctx, sym) cells (K6) and the stacked tables' (f, cum) (K5); and the
+    # same for the group's first block alone (the one-card --data-parallel
+    # driver's group)
+    for tag, group in (("", blocks), (" 1 block", blocks[:1])):
+        _, _, _, gsym, gctx, gcounts = mesh.stage1(
+            mesh.upload_blocks(group, dev), [b.n_reads for b in group],
+            k, seed, 1)
+        C = qualities.n_contexts(1)
+        gctx = qualities.stacked_ctx(gctx, 1).reshape(-1)
+        gsym = gsym.reshape(-1)
+        cells = len(group) * C * qualities.N_SYMS
+        idx = gctx * qualities.N_SYMS + gsym
+        cases.append(Case(
+            "K6" + tag, histogram.histogram, histogram.histogram_plain,
+            (idx, cells), histogram.prepare, 20, 5, (idx,), idx.numel(),
+            library=lambda idx=idx, cells=cells: torch.bincount(
+                idx, minlength=cells)))
+        gfreq, gcum = entropy.device_normalize(gcounts, C, qualities.N_SYMS)
+        f_all, c_all = rans.gather_tables(gsym, gctx, gfreq.reshape(-1),
+                                          gcum.reshape(-1),
+                                          qualities.N_SYMS, T)
+        del gsym, gctx
+        cases.append(Case(
+            "K5" + tag, rans_encode_flat.encode_scan_flat,
+            rans_encode_flat.encode_scan_flat_plain, (f_all, c_all),
+            rans_encode_flat.prepare, 10, 1, (f_all, c_all), f_all.numel()))
+        say(f"group of {len(group)} block(s): K6 S = {idx.numel()} into "
+            f"{cells} cells; K5 [T, N] = {list(f_all.shape)}")
 
     out = {}
-    for name, (kernel, plain, a, iters, plain_iters) in results.items():
-        got = kernel(*a)
-        ref = plain(*a)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, ref)
-        ms = time_ms(lambda: kernel(*a), iters)
-        plain_ms = time_ms(lambda: plain(*a), plain_iters)
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        say(f"{name} {kernels[name][1].__name__}: equal to plain; kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms per launch")
+    for case in cases:
+        out[case.name] = m = case.run()
+        lib = "none" if m["library_ms"] is None else \
+            f"{m['library_ms']:.3f}"
+        say(f"{case.name}: equal to plain; wrapper {m['ms']:.3f} ms, kernel "
+            f"{m['kernel_ms']:.3f} ms, plain {m['plain_ms']:.3f} ms, library "
+            f"{lib} ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}, "
+            f"{m['bound_bytes']} B)")
+
     # the decoded grid must be the block's qualities
-    qual_back = qualities._qual_from_syms(
-        rans_decode.decode_scan(*dec_args), dec_lengths, T, B, L)
-    if not torch.equal(qual_back[0], torch.where(
-            torch.arange(L, device=dev)[None, :] < len_s[:, None],
-            qual_s, 0)):
+    a = decode_args(1, 1)
+    want = torch.where(torch.arange(L, device=dev)[None, :] < len_s[:, None],
+                       qual_s, 0)
+    if not torch.equal(rans_decode.decode_quals(*a).reshape(B, L), want):
         raise AssertionError("K4 decode does not give the block's qualities")
-    for order in (2, 3):
-        a, _ = decode_args(order)
-        err = max_abs_err((rans_decode.decode_scan(*a),),
-                          (rans_decode.decode_scan_plain(*a),))
-        say(f"K4 order {order}: equal to plain (max abs err {err})")
+    for order in (1, 2, 3):
+        a = decode_args(order, 4 if order == 1 else 1)
+        err = max_abs_err((rans_decode.decode_quals(*a),),
+                          (rans_decode.decode_quals_plain(*a),))
+        err = max(err, max_abs_err((rans_decode.decode_scan(*a),),
+                                   (rans_decode.decode_scan_plain(*a),)))
+        say(f"order {order}: K2, K3, K4 (decode_quals and decode_scan) equal "
+            f"to plain (max abs err {err})")
     return out
 
 
 def compress_file(src: str, out: str, device: str, **change) -> float:
     import scalce_tpu_torch
-    from scalce_tpu.config import Config
+    from scalce_tpu_torch.config import Config
     t0 = time.monotonic()
     scalce_tpu_torch.compress(Config(inputs=(src,), output=out,
                                      **{**SLICE, **change}), device)
@@ -261,11 +384,11 @@ def triplet(prefix: str) -> list:
 
 def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
                         t_single: float) -> dict:
-    """Phase 6: the data-parallel path on the main file; returns its
-    launch counts."""
+    """Phase 6: the data-parallel path on the main file; returns the launch
+    counts of the ShardedEncoder run and of the --data-parallel driver's."""
     import scalce_tpu_torch
-    from scalce_tpu.config import Config
-    from scalce_tpu.io import fastq
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.io import fastq
     from scalce_tpu_torch.parallel import mesh
     from scalce_tpu_torch.pipeline.encode import BlockEncoder
     cfg = Config(inputs=(src,), **SLICE)
@@ -285,42 +408,45 @@ def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
         got += [eb.payloads for eb in senc.encode_blocks(blocks[i:i + senc.D])]
     torch.cuda.synchronize()
     t_group = time.monotonic() - t0
+    sharded = counts(kernels, kernels)
     if got != want:
         raise AssertionError("data-parallel payloads != single-device "
                              "payloads")
     n_blocks = len(blocks)
     del blocks, got, want
+    reset(kernels)
     t0 = time.monotonic()
     scalce_tpu_torch.compress(Config(inputs=(src,), output=os.path.join(
         tmp, "dp"), data_parallel=True, **SLICE), "cuda")
     torch.cuda.synchronize()
     t_dp = time.monotonic() - t0
-    launches = counts(kernels, kernels)
+    driver = counts(kernels, kernels)
     if triplet(os.path.join(tmp, "dp")) != triplet(os.path.join(tmp,
                                                                  "main")):
         raise AssertionError("--data-parallel triplet != phase 4's")
-    if not (launches["K1"] and launches["K5"] and launches["K6"]):
-        raise AssertionError(f"K1, K5 or K6 never ran on the data-parallel "
-                             f"path: {launches}")
+    for run, launches in (("ShardedEncoder", sharded), ("driver", driver)):
+        if not (launches["K1"] and launches["K5"] and launches["K6"]):
+            raise AssertionError(f"K1, K5 or K6 never ran in the "
+                                 f"data-parallel {run} run: {launches}")
     mb = os.path.getsize(src) / 1e6
     say(f"data-parallel on {[str(d) for d in senc.mesh]}: the payloads of "
         f"{n_blocks} blocks (groups of {senc.D}) equal the single-device "
-        f"encoder's; the --data-parallel triplet equals phase 4's; "
-        f"launches {launches}")
+        f"encoder's (launches {sharded}); the --data-parallel triplet "
+        f"equals phase 4's (launches {driver})")
     say(f"encode of the parsed file: single-device {t_one:.3f} s, "
         f"{senc.group} blocks per card {t_group:.3f} s | {smi}")
     say(f"compress: single-device {t_single:.3f} s = {mb / t_single:.2f} "
         f"MB/s, --data-parallel (1 block per card) {t_dp:.3f} s = "
         f"{mb / t_dp:.2f} MB/s | {smi}")
-    return launches
+    return sharded, driver
 
 
 def check_paired(tmp: str, kernels: dict, smi: str) -> None:
     """Phase 7: paired-end compress, keep-order decompress and the
     --data-parallel pair on the card."""
     import scalce_tpu_torch
-    from scalce_tpu.config import Config
-    from scalce_tpu.utils.synth import synth_pair
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.utils.synth import synth_pair
     mates = synth_pair(MAIN_READS, 100, seed=42, genome_len=1_000_000,
                        n_rate=0.001)
     paths = tuple(os.path.join(tmp, f"mate{m}.fastq") for m in (1, 2))
@@ -385,9 +511,9 @@ def check_lossy(src: str, data: bytes, lossless_bytes: int, tmp: str,
     ragged lossy pair on the card and the CPU."""
     import numpy as np
     import scalce_tpu_torch
-    from scalce_tpu.config import Config
-    from scalce_tpu.io import fastq
-    from scalce_tpu.utils.synth import synth_pair
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.io import fastq
+    from scalce_tpu_torch.utils.synth import synth_pair
     from scalce_tpu_torch.models import lossy
     from scalce_tpu_torch.parallel import mesh
     from scalce_tpu_torch.pipeline import encode
@@ -516,7 +642,7 @@ def main() -> int:
     kernels = {"K1": (core_rank, core_rank.rank_argmin),
                "K2": (hist, hist.hist_ctx),
                "K3": (rans_encode, rans_encode.encode_scan),
-               "K4": (rans_decode, rans_decode.decode_scan),
+               "K4": (rans_decode, rans_decode.decode_quals),
                "K5": (rans_encode_flat, rans_encode_flat.encode_scan_flat),
                "K6": (histogram, histogram.histogram)}
     main_path = ("K1", "K2", "K3", "K4")
@@ -530,7 +656,7 @@ def main() -> int:
         src = os.path.join(tmp, "main.fastq")
         data = write_fastq(src, MAIN_READS, seed=42, genome_len=1_000_000,
                            n_rate=0.001)
-        from scalce_tpu.io import fastq
+        from scalce_tpu_torch.io import fastq
         blocks = fastq.iter_blocks(src, SLICE["block_reads"],
                                    SLICE["max_read_len"])
         group = [next(blocks) for _ in range(4)]
@@ -541,7 +667,7 @@ def main() -> int:
         reset(kernels)                                          # phase 4
         t_c = compress_file(src, os.path.join(tmp, "main"), "cuda")
         import scalce_tpu_torch
-        from scalce_tpu.config import Config
+        from scalce_tpu_torch.config import Config
         t0 = time.monotonic()
         scalce_tpu_torch.decompress(Config(
             mode="decompress", inputs=(os.path.join(tmp, "main.00.scalcen"),),
@@ -575,15 +701,25 @@ def main() -> int:
         say(f"card == CPU triplets on the ragged file ({len(gpu)} files; "
             f"card {t_gpu:.2f} s, CPU {t_cpu:.2f} s)")
 
-        dp = check_data_parallel(src, tmp, kernels, smi, t_c)   # phase 6
-        launches.update(K5=dp["K5"], K6=dp["K6"])
+        sharded, driver = check_data_parallel(src, tmp, kernels, smi,
+                                              t_c)              # phase 6
+        launches.update(K5=driver["K5"], K6=driver["K6"])
         check_paired(tmp, kernels, smi)                         # phase 7
         check_lossy(src, data, comp, tmp, kernels, smi)         # phase 8
 
+    # K4 also at the main path's remainder group (D = 1); K5 and K6 also
+    # at one block's shapes (the one-card --data-parallel driver's)
+    other = {"K4": ("K4 D=1", "d1"), "K5": ("K5 1 block", "one_block"),
+             "K6": ("K6 1 block", "one_block")}
     print(json.dumps({"kernels": [
         {"name": f"{name} {fn.__name__}", "route": "cuda",
          "source": mod.SOURCE, "replaces": mod.REPLACES,
-         "launches": launches[name], **measured[name]}
+         "launches": launches[name],
+         **({"sharded_launches": sharded[name]}
+            if name in ("K5", "K6") else {}),
+         **measured[name],
+         **({other[name][1]: measured[other[name][0]]}
+            if name in other else {})}
         for name, (mod, fn) in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,19 +17,24 @@ Layout (counterparts of ``scalce_tpu``'s subpackages):
   streams/    sequence and quality payload codecs
   pipeline/   block encoder/decoder and the compress/decompress drivers
   parallel/   data parallelism over the devices of one host
+  io/, native/, container, config, utils/
+              host modules: copies of the reference's (FASTQ I/O, the
+              native C library, the file container, Config, synthetic
+              data)
   convert     arrays across the two packages
   cli         ``python -m scalce_tpu_torch``
 
-Importing this package imports neither jax nor ``scalce_tpu``'s jax
-modules; it reuses the reference's jax-free host modules (FASTQ I/O,
-container, Config, native library, names codec).  The device is always
-explicit: ``"cuda"`` with no card raises.
+Importing this package imports neither jax nor anything of
+``scalce_tpu``: the host modules it shares with the reference (FASTQ
+I/O, container, Config, native library, names codec, synthetic data)
+are its own copies.  The device is always explicit: ``"cuda"`` with no
+card raises.
 """
 
 
 def compress(cfg, device):
-    """Compress as described by a ``scalce_tpu.config.Config`` on
-    ``device`` (``"cuda"``, ``"cuda:N"`` or ``"cpu"``)."""
+    """Compress as described by a :class:`scalce_tpu_torch.config.Config`
+    on ``device`` (``"cuda"``, ``"cuda:N"`` or ``"cpu"``)."""
     from scalce_tpu_torch.pipeline import driver
     return driver.compress(cfg, device)
 

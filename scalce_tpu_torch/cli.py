@@ -12,12 +12,12 @@ mate 1's order); ``-p PCT`` maps qualities through a map built from the
 first ``-S`` reads (default 100,000), within PCT percent of each value.
 ``--data-parallel`` compresses in groups of blocks (or pairs) over every
 visible card (``--device cuda``), or over the one device that ``cuda:N``
-or ``cpu`` names; the triplets are the same.  The parser is
-``scalce_tpu.cli.build_parser``; its defaults are moved to the ported
-slice (device placement of every stage, quality context order 1, the
-best installed byte backend), so the bare command runs.  Flags outside
-the slice raise NotImplementedError naming the ROADMAP.md item that will
-add them.
+or ``cpu`` names; the triplets are the same.  The parser is the
+reference's (``cli_args.build_parser``, a copy); its defaults are moved
+to the ported slice (device placement of every stage, quality context
+order 1, the best installed byte backend), so the bare command runs.
+Flags outside the slice raise NotImplementedError naming the ROADMAP.md
+item that will add them.
 """
 
 from __future__ import annotations
@@ -25,9 +25,9 @@ from __future__ import annotations
 import sys
 from typing import List, Optional
 
-from scalce_tpu.cli import build_parser as _reference_parser
-from scalce_tpu.cli import config_from_args
-from scalce_tpu.io.backend import DEFAULT_BACKEND
+from scalce_tpu_torch.cli_args import build_parser as _reference_parser
+from scalce_tpu_torch.cli_args import config_from_args
+from scalce_tpu_torch.io.backend import DEFAULT_BACKEND
 
 
 def build_parser():

@@ -1,0 +1,1295 @@
+# Copy of scalce_tpu/io/fastq.py (only the imports differ).
+"""Chunked, vectorized FASTQ parsing into fixed-shape device blocks.
+
+The reference parses FASTQ one record at a time in a scalar C loop
+[REF: scalce reads.c record loop — UNVERIFIED; SURVEY.md §4.1 hot loop #1].
+A scalar loop is the wrong shape for feeding a TPU: the device wants large,
+static-shape, padded batches.  This module therefore parses FASTQ with
+whole-buffer NumPy vector ops (newline scan + ragged gather) and emits
+``ReadBlock``s — padded ``[B, L]`` uint8 arrays plus a length vector —
+ready for a single H2D transfer.  Ragged per-record strings (names, '+'
+lines) stay as concatenated byte arrays with offset vectors, never Python
+lists, so parse and write run at memory-bandwidth-class speed.
+
+Supports plain and gzip inputs (auto-detected by magic), stdin, and
+paired-end dual-file iteration in lockstep (SURVEY.md §1 items 1, 7).
+
+Non-ACGT bases (N, lowercase, IUPAC codes) are preserved exactly via an
+exception side-channel (flat position, original byte) so the device path
+can work on dense 2-bit codes while round-trips stay byte-exact
+(SURVEY.md §8 "hard parts": N-handling).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import struct
+import sys
+import threading
+import zlib
+from typing import IO, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+# Base coding: A=0, C=1, G=2, T=3. Everything else is an exception byte
+# (code forced to 0 so 2-bit packing stays dense).
+BASE_TO_CODE = np.full(256, 255, dtype=np.uint8)
+for _i, _b in enumerate(b"ACGT"):
+    BASE_TO_CODE[_b] = _i
+CODE_TO_BASE = np.frombuffer(b"ACGT", dtype=np.uint8).copy()
+
+_CHUNK_BYTES = 32 << 20  # streaming read granularity
+_EMPTY_U8 = np.empty(0, np.uint8)
+
+try:  # native memcpy paths (scalce_tpu/native); NumPy fallback below
+    from scalce_tpu_torch import native as _native
+    _NATIVE = _native.AVAILABLE
+except Exception:  # pragma: no cover - toolchain-less environments
+    _native = None
+    _NATIVE = False
+
+
+def ragged_gather(buf: np.ndarray, starts: np.ndarray,
+                  lens: np.ndarray) -> np.ndarray:
+    """Concatenate ``buf[starts[i]:starts[i]+lens[i]]``, vectorized
+    (native memcpy loop when the C extension is available)."""
+    total = int(lens.sum())
+    if total == 0:
+        return buf[:0]
+    if _NATIVE and buf.dtype == np.uint8 and buf.flags.c_contiguous:
+        return _native.ragged_gather_u8(buf, starts.astype(np.int64),
+                                        lens.astype(np.int64))
+    off = np.concatenate(([0], np.cumsum(lens)[:-1]))
+    idx = np.repeat(starts - off, lens) + np.arange(total, dtype=np.int64)
+    return buf[idx]
+
+
+def ragged_scatter(dst: np.ndarray, dst_starts: np.ndarray,
+                   src_cat: np.ndarray, lens: np.ndarray) -> None:
+    """Inverse of :func:`ragged_gather`: write concatenated rows into dst."""
+    total = int(lens.sum())
+    if total == 0:
+        return
+    if (_NATIVE and dst.dtype == np.uint8 and dst.flags.c_contiguous
+            and src_cat.dtype == np.uint8):
+        _native.ragged_scatter_u8(dst, dst_starts.astype(np.int64),
+                                  np.ascontiguousarray(src_cat),
+                                  lens.astype(np.int64))
+        return
+    off = np.concatenate(([0], np.cumsum(lens)[:-1]))
+    idx = np.repeat(dst_starts - off, lens) + np.arange(total, dtype=np.int64)
+    dst[idx] = src_cat
+
+
+def lens_to_offsets(lens: np.ndarray) -> np.ndarray:
+    """[l0, l1, ...] -> [0, l0, l0+l1, ...] (int64, n+1 entries)."""
+    out = np.zeros(len(lens) + 1, dtype=np.int64)
+    np.cumsum(lens, out=out[1:])
+    return out
+
+
+@dataclasses.dataclass
+class Ragged:
+    """A batch of byte strings as (concatenated bytes, offsets)."""
+
+    cat: np.ndarray        # uint8 [total]
+    offsets: np.ndarray    # int64 [n + 1]
+
+    def __len__(self) -> int:
+        return len(self.offsets) - 1
+
+    def __getitem__(self, i: int) -> bytes:
+        return self.cat[self.offsets[i]: self.offsets[i + 1]].tobytes()
+
+    def to_list(self) -> List[bytes]:
+        return [self[i] for i in range(len(self))]
+
+    @property
+    def lens(self) -> np.ndarray:
+        return np.diff(self.offsets)
+
+    @staticmethod
+    def from_list(items: List[bytes]) -> "Ragged":
+        lens = np.asarray([len(x) for x in items], dtype=np.int64)
+        cat = (np.frombuffer(b"".join(items), dtype=np.uint8).copy()
+               if items else _EMPTY_U8)
+        return Ragged(cat, lens_to_offsets(lens))
+
+    @staticmethod
+    def concat(parts: List["Ragged"]) -> "Ragged":
+        if not parts:
+            return Ragged(_EMPTY_U8, np.zeros(1, np.int64))
+        if len(parts) == 1:        # common case: one bundle per block
+            return parts[0]
+        cat = np.concatenate([p.cat for p in parts])
+        lens = np.concatenate([p.lens for p in parts])
+        return Ragged(cat, lens_to_offsets(lens))
+
+
+def reorder_ragged(r: "Ragged", perm: np.ndarray) -> "Ragged":
+    """Gather ragged rows by ``perm`` (host-side row permutation)."""
+    lens = r.lens[perm]
+    cat = ragged_gather(r.cat, r.offsets[:-1][perm], lens)
+    return Ragged(cat, lens_to_offsets(lens))
+
+
+@dataclasses.dataclass
+class ReadBlock:
+    """One fixed-shape batch of parsed FASTQ records.
+
+    Arrays are padded to ``[capacity, max_len]``; only the first
+    ``n_reads`` rows and the first ``lengths[i]`` columns are meaningful.
+    """
+
+    seq: np.ndarray            # uint8 [B, L]  2-bit base codes (0..3)
+    qual: np.ndarray           # uint8 [B, L]  raw quality bytes
+    lengths: np.ndarray        # int32 [B]     per-read length
+    n_reads: int
+    exc_pos: np.ndarray        # int64 [E]     flat positions (row*L + col)
+    exc_byte: np.ndarray       # uint8 [E]     original base byte
+    names: Ragged              # len == n_reads, without leading '@'
+    plus: Optional[Ragged]     # None => every '+' line was bare "+"
+    block_id: int = 0
+
+    @property
+    def capacity(self) -> int:
+        return self.seq.shape[0]
+
+    @property
+    def max_len(self) -> int:
+        return self.seq.shape[1]
+
+
+#: recycled (seq, qual, lengths) array triples for ``_BlockBuilder``.
+#: ``fill(0)`` on warm pages is ~4x cheaper than fresh ``np.zeros`` +
+#: first-touch page faults (measured 3.7 vs 13.6 ms per 131k x 128
+#: block), so the compress driver hands its consumed blocks back here.
+#: Lock-guarded: recyclers run on the assemble pool while the pacing
+#: thread pops.  Wrong-shape entries are EVICTED on pop so a run with
+#: a new block shape reclaims the pool instead of being locked out,
+#: and long-read-sized arrays are never pooled (gigabytes pinned for
+#: the process lifetime otherwise).
+_BLOCK_POOL: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+_BLOCK_POOL_LOCK = threading.Lock()
+_BLOCK_POOL_MAX = 6
+_BLOCK_POOL_MAX_BYTES = 64 << 20      # per array; excludes long-read L
+
+#: SCALCE_POISON_RECYCLE=1 debug mode (ADVICE r4): instead of pooling,
+#: overwrite recycled arrays with a sentinel.  The pool's safety rests
+#: on the convention that ``assemble`` is the LAST reader of
+#: block.seq/qual/lengths; a future consumer that retains a view would
+#: silently read reused data — under poison it reads 0xAB garbage and
+#: the byte-identity tests fail deterministically instead.
+_POISON_RECYCLE = os.environ.get("SCALCE_POISON_RECYCLE", "") == "1"
+
+
+def recycle_block(block: "ReadBlock") -> None:
+    """Return a ReadBlock's padded arrays to the builder pool.
+
+    ONLY call this when nothing will read ``block.seq`` / ``block.qual``
+    / ``block.lengths`` again (the compress driver calls it right after
+    ``assemble``, the last consumer).  Views (non-owning arrays) and
+    odd shapes are silently skipped."""
+    seq, qual, lengths = block.seq, block.qual, block.lengths
+    if (seq is None or qual is None or lengths is None
+            or seq.base is not None or qual.base is not None
+            or lengths.base is not None
+            or seq.shape != qual.shape or len(seq.shape) != 2
+            or lengths.shape != (seq.shape[0],)
+            or seq.nbytes > _BLOCK_POOL_MAX_BYTES):
+        return
+    if _POISON_RECYCLE:
+        seq.fill(0xAB)
+        qual.fill(0xAB)
+        lengths.fill(0xABAB)
+        return
+    with _BLOCK_POOL_LOCK:
+        if len(_BLOCK_POOL) < _BLOCK_POOL_MAX:
+            _BLOCK_POOL.append((seq, qual, lengths))
+
+
+def _pooled_block_arrays(capacity: int, max_len: int):
+    """Pop a recycled triple of the right shape (zeroed), else fresh.
+    Entries of any OTHER shape are always dropped (stale leftovers of a
+    previous run's block geometry — left in place they would fill the
+    pool and lock recycling out permanently)."""
+    match = None
+    with _BLOCK_POOL_LOCK:
+        keep = []
+        for triple in _BLOCK_POOL:
+            if triple[0].shape != (capacity, max_len):
+                continue                   # evict wrong-shape entry
+            if match is None:
+                match = triple
+            else:
+                keep.append(triple)
+        _BLOCK_POOL[:] = keep
+    if match is not None:
+        seq, qual, lengths = match
+        seq.fill(0)
+        qual.fill(0)
+        lengths.fill(0)
+        return seq, qual, lengths
+    return (np.zeros((capacity, max_len), np.uint8),
+            np.zeros((capacity, max_len), np.uint8),
+            np.zeros(capacity, np.int32))
+
+
+class _GzChunkReader:
+    """Large-chunk gzip reader: ``zlib.decompressobj`` fed 4MB
+    compressed chunks (including concatenated multi-member files, as
+    bgzip emits).  ``gzip.open`` tops out ~250 MB/s through its small
+    internal buffers and halved gz-input encode throughput; this path
+    decompresses at zlib speed straight into the parser's chunk
+    buffer via ``readinto``."""
+
+    def __init__(self, f: IO[bytes]):
+        self._f = f
+        self._z = zlib.decompressobj(47)       # 32+15: gzip/zlib auto
+        self._pending = b""                    # unconsumed compressed
+        self._out = bytearray()                # flush leftovers only
+        self._eof = False
+
+    def readinto(self, b) -> int:
+        mv = memoryview(b)
+        n = len(mv)
+        got = 0
+        while got < n:
+            if self._out:                      # rare: flush() tail
+                take = min(len(self._out), n - got)
+                mv[got: got + take] = self._out[:take]
+                del self._out[:take]
+                got += take
+                continue
+            # max_length-bounded decompress writes STRAIGHT into the
+            # caller's buffer slice (one copy); the old bytearray
+            # staging copied every inflated byte twice more — all
+            # under the GIL, starving the other pipeline threads
+            comp = (self._z.unconsumed_tail or self._pending
+                    or self._f.read(4 << 20))
+            self._pending = b""
+            if not comp:
+                if not self._eof:
+                    self._eof = True       # flush exactly once
+                    self._out += self._z.flush()
+                    continue
+                break
+            out = self._z.decompress(comp, n - got)
+            mv[got: got + len(out)] = out
+            got += len(out)
+            if self._z.eof:                    # next gzip member
+                tail = self._z.unused_data
+                self._z = zlib.decompressobj(47)
+                self._pending = tail
+        return got
+
+    def read(self, n: int = -1) -> bytes:
+        if n < 0:
+            chunks = []
+            while True:
+                buf = bytearray(4 << 20)
+                k = self.readinto(buf)
+                if not k:
+                    break
+                chunks.append(bytes(buf[:k]))
+            return b"".join(chunks)
+        buf = bytearray(n)
+        k = self.readinto(buf)
+        return bytes(buf[:k])
+
+    def close(self) -> None:
+        self._f.close()
+
+
+class _ReadAheadReader:
+    """Run a chunk reader on its own thread with a bounded queue of
+    inflated chunks.
+
+    For single-member gzip the inflate itself cannot parallelize, but
+    serializing it in front of the SWAR line scan halves gz-input
+    throughput (VERDICT r2 missing #5) — this overlaps the two: the
+    inflate thread stays ~`depth` chunks ahead while the pacing thread
+    only scans."""
+
+    _CHUNK = 4 << 20
+
+    def __init__(self, inner, depth: int = 3):
+        import queue as _q
+        import threading as _t
+        self._inner = inner
+        self._q: "_q.Queue" = _q.Queue(maxsize=depth)
+        self._buf = memoryview(b"")
+        self._err: list = []
+        self._done = False
+        self._stop = _t.Event()
+        self._t = _t.Thread(target=self._work, daemon=True)
+        self._t.start()
+
+    def _work(self):
+        import queue as _q
+        try:
+            while not self._stop.is_set():
+                chunk = self._inner.read(self._CHUNK)
+                while not self._stop.is_set():
+                    try:
+                        self._q.put(chunk, timeout=0.2)
+                        break
+                    except _q.Full:
+                        continue
+                if not chunk:
+                    return
+        except BaseException as e:
+            self._err.append(e)
+            # the sentinel put must RETRY like the data puts: with the
+            # bounded queue full (the steady state under encode
+            # backpressure) a single timed put would drop the sentinel
+            # and leave the consumer blocked in q.get() forever —
+            # a corrupt .gz would HANG the CLI instead of raising
+            import queue as _q
+            while not self._stop.is_set():
+                try:
+                    self._q.put(b"", timeout=0.2)
+                    break
+                except _q.Full:
+                    continue
+
+    def readinto(self, b) -> int:
+        mv = memoryview(b)
+        n = len(mv)
+        got = 0
+        while got < n:
+            if not self._buf:
+                if self._done:
+                    break
+                chunk = self._q.get()
+                if self._err:
+                    raise self._err[0]
+                if not chunk:
+                    self._done = True
+                    break
+                self._buf = memoryview(chunk)
+            take = min(len(self._buf), n - got)
+            mv[got: got + take] = self._buf[:take]
+            self._buf = self._buf[take:]
+            got += take
+        return got
+
+    def read(self, n: int = -1) -> bytes:
+        if n < 0:
+            chunks = []
+            while True:
+                buf = bytearray(self._CHUNK)
+                k = self.readinto(buf)
+                if not k:
+                    break
+                chunks.append(bytes(buf[:k]))
+            return b"".join(chunks)
+        buf = bytearray(n)
+        k = self.readinto(buf)
+        return bytes(buf[:k])
+
+    def close(self) -> None:
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except Exception:
+            pass
+        self._t.join(timeout=2.0)
+        self._inner.close()
+
+
+def _bgzf_block_size(hdr: bytes) -> int:
+    """Return the compressed size of the BGZF block starting at hdr, or
+    0 if this is not a BGZF header.  BGZF = gzip member with FEXTRA and
+    a 'BC' subfield holding (total block size - 1) — the property that
+    makes member boundaries findable WITHOUT inflating (bgzip, and the
+    htslib ecosystem's .gz files)."""
+    if len(hdr) < 18 or hdr[:4] != b"\x1f\x8b\x08\x04":
+        return 0
+    (xlen,) = struct.unpack_from("<H", hdr, 10)
+    off = 12
+    end = 12 + xlen
+    if end > len(hdr):
+        return 0
+    while off + 4 <= end:
+        si1, si2, slen = hdr[off], hdr[off + 1], \
+            struct.unpack_from("<H", hdr, off + 2)[0]
+        if si1 == 66 and si2 == 67 and slen == 2:
+            if off + 6 > end:
+                return 0
+            (bsize,) = struct.unpack_from("<H", hdr, off + 4)
+            return bsize + 1
+        off += 4 + slen
+    return 0
+
+
+def _inflate_members(data: bytes) -> bytes:
+    """Inflate ALL gzip members contained in ``data`` (must end at a
+    member boundary).  zlib releases the GIL, so pool workers running
+    this genuinely parallelize.
+
+    Members are sliced by their BC sizes and inflated one by one —
+    feeding the whole buffer and chaining on ``unused_data`` re-copies
+    the remaining group per member (O(members x group) memcpy, measured
+    SLOWER than the sequential reader)."""
+    out = []
+    mv = memoryview(data)
+    pos = 0
+    n = len(data)
+    while pos < n:
+        size = _bgzf_block_size(bytes(mv[pos:pos + 64]))
+        if size and pos + size <= n:
+            z = zlib.decompressobj(47)
+            out.append(z.decompress(mv[pos:pos + size]))
+            tail = z.flush()
+            if tail:
+                out.append(tail)
+            pos += size
+        else:          # non-BGZF member inside a group: generic chain
+            z = zlib.decompressobj(47)
+            rest = bytes(mv[pos:])
+            while rest:
+                out.append(z.decompress(rest))
+                if not z.eof:
+                    out.append(z.flush())
+                    break
+                rest = z.unused_data
+                z = zlib.decompressobj(47)
+            pos = n
+    return b"".join(out)
+
+
+class _BgzfParallelReader:
+    """Parallel inflate for BGZF (multi-member) gzip: split at the
+    BC-subfield block boundaries (no inflate needed), inflate ~4MB
+    groups of members on a worker pool, drain futures in submission
+    order (deterministic bytes).  Falls back to sequential inflate from
+    the first non-BGZF member onward (e.g. ``cat bgzf.gz plain.gz``).
+    """
+
+    _GROUP = 4 << 20
+
+    def __init__(self, f: IO[bytes], workers: int = 0):
+        import concurrent.futures as _fut
+        import collections as _c
+        if workers <= 0:
+            workers = max(2, min(4, (os.cpu_count() or 4) - 1))
+        self._f = f
+        self._pool = _fut.ThreadPoolExecutor(max_workers=workers)
+        self._futs: "_c.deque" = _c.deque()
+        self._max_futs = workers + 2
+        self._carry = b""            # compressed bytes not yet grouped
+        self._tail_seq = None        # sequential fallback reader
+        self._buf = memoryview(b"")
+        self._split_done = False
+
+    def _fill_futs(self) -> None:
+        while len(self._futs) < self._max_futs and not self._split_done:
+            group_end = 0
+            data = self._carry
+            # extend until we hold >= GROUP of whole blocks (or EOF /
+            # a non-BGZF member — never slurp past either)
+            while True:
+                while True:
+                    size = _bgzf_block_size(data[group_end:group_end + 64])
+                    if size == 0 or group_end + size > len(data):
+                        break
+                    group_end += size
+                    if group_end >= self._GROUP:
+                        break
+                if group_end >= self._GROUP:
+                    break
+                if (len(data) - group_end >= 64
+                        and _bgzf_block_size(
+                            data[group_end:group_end + 64]) == 0):
+                    self._split_done = True    # non-BGZF member follows
+                    break
+                more = self._f.read(self._GROUP)
+                if not more:
+                    self._split_done = True    # EOF
+                    break
+                data = data + more if data else more
+            self._carry = data[group_end:]
+            if group_end:
+                self._futs.append(
+                    self._pool.submit(_inflate_members, data[:group_end]))
+            if self._split_done:
+                # hand the remainder to the sequential inflater
+                # (chained after the parallel part)
+                if self._carry:
+                    chained = _ChainedFile(self._carry, self._f)
+                    self._tail_seq = _GzChunkReader(chained)
+                return
+
+    def readinto(self, b) -> int:
+        mv = memoryview(b)
+        n = len(mv)
+        got = 0
+        while got < n:
+            if not self._buf:
+                self._fill_futs()
+                if self._futs:
+                    self._buf = memoryview(self._futs.popleft().result())
+                    continue
+                if self._tail_seq is not None:
+                    got += self._tail_seq.readinto(mv[got:])
+                break
+            take = min(len(self._buf), n - got)
+            mv[got: got + take] = self._buf[:take]
+            self._buf = self._buf[take:]
+            got += take
+        return got
+
+    def read(self, n: int = -1) -> bytes:
+        if n < 0:
+            chunks = []
+            while True:
+                buf = bytearray(self._GROUP)
+                k = self.readinto(buf)
+                if not k:
+                    break
+                chunks.append(bytes(buf[:k]))
+            return b"".join(chunks)
+        buf = bytearray(n)
+        k = self.readinto(buf)
+        return bytes(buf[:k])
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=False, cancel_futures=True)
+        self._f.close()
+
+
+class _ChainedFile:
+    """Read ``head`` bytes, then the rest of ``f``."""
+
+    def __init__(self, head: bytes, f: IO[bytes]):
+        self._head = memoryview(head)
+        self._f = f
+
+    def read(self, n: int = -1) -> bytes:
+        if self._head:
+            if n < 0:
+                out = bytes(self._head) + self._f.read()
+                self._head = memoryview(b"")
+                return out
+            take = min(len(self._head), n)
+            out = bytes(self._head[:take])
+            self._head = self._head[take:]
+            return out
+        return self._f.read(n)
+
+    def close(self) -> None:
+        self._f.close()
+
+
+def probe_max_read_len(paths, floor: int = 128,
+                       probe_bytes: int = 4 << 20) -> Optional[int]:
+    """Auto-size the padded read width from the head of the input(s)
+    (VERDICT r4 #7: the reference handles any length up to its MAXLINE
+    without user action [REF: const.h MAXLINE — UNVERIFIED; SURVEY.md
+    §6 long-context row]).
+
+    Scans the first ``probe_bytes`` of DECODED text per input and
+    returns ``max(floor, ceil16(longest sequence line))`` — a pure
+    function of (input bytes, constants), so the resolved width (and
+    therefore every output byte) stays deterministic.  Inputs at or
+    under ``floor`` bp resolve to exactly ``floor``, keeping the warmed
+    default shapes.  Returns None for stdin (not re-readable; the
+    caller keeps the floor and the exceeds-max error path still names
+    --max-read-len).  A read beyond the probe window that exceeds the
+    resolved width raises the same actionable error as before."""
+    best = floor
+    for path in paths:
+        if path == "-" or not os.path.isfile(path):
+            # stdin / FIFOs / process substitution are not re-readable:
+            # a probe read would consume bytes the parse then misses
+            # (and seek(0) raises on them) — keep the floor; the
+            # exceeds-max error still names --max-read-len
+            return None
+        with open(path, "rb") as f:
+            if not f.seekable():
+                return None
+            magic = f.read(3)
+            f.seek(0)
+            if magic[:2] == b"\x1f\x8b":
+                import gzip
+                src = gzip.GzipFile(fileobj=f)
+            elif magic == b"BZh":
+                import bz2
+                src = bz2.BZ2File(f)
+            else:
+                src = f
+            data = src.read(probe_bytes)
+        lines = data.split(b"\n")
+        lines = lines[:-1]      # trailing partial line (or empty tail)
+        seqs = lines[1::4]      # 4-line records from byte 0
+        if seqs:
+            best = max(best, max(len(s.rstrip(b"\r")) for s in seqs))
+    return (best + 15) // 16 * 16
+
+
+def _open_maybe_gz(path: str) -> IO[bytes]:
+    if path == "-":
+        return sys.stdin.buffer
+    f = open(path, "rb")
+    magic = f.read(18)
+    f.seek(0)
+    if magic[:2] == b"\x1f\x8b":
+        if _bgzf_block_size(magic) > 0:
+            return _BgzfParallelReader(f)  # type: ignore[return-value]
+        # single-member: inflate on a read-ahead thread so the line
+        # scan and parse overlap with it
+        return _ReadAheadReader(_GzChunkReader(f))  # type: ignore
+    if magic[:3] == b"BZh":
+        # bzip2 input, mirroring the reference's buffio read modes
+        # [REF: scalce buffio.c gz/bz open — UNVERIFIED; SURVEY.md §2 L0].
+        # BZ2File decompresses serially; the read-ahead thread overlaps
+        # it with the line scan the same way as single-member gzip.
+        import bz2
+        return _ReadAheadReader(bz2.BZ2File(f))  # type: ignore
+    return f
+
+
+def _iter_line_bundles(stream: IO[bytes]) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yield (buffer, line_start_offsets) covering whole lines.
+
+    ``starts`` has a trailing entry = end offset, so line ``i`` is
+    ``buf[starts[i]:starts[i+1]-1]`` (excluding the newline).  A trailing
+    unterminated line is treated as terminated at EOF.
+    """
+    def starts_of(buf: np.ndarray) -> np.ndarray:
+        # memchr-class native scan when available (~10x the numpy
+        # eq+flatnonzero on 32MB chunks); when buf ends with '\n' the
+        # last entry doubles as the end offset
+        try:
+            from scalce_tpu_torch import native
+            if native.AVAILABLE:
+                return native.line_starts(buf)
+        except Exception:
+            pass
+        nl = np.flatnonzero(buf == 10)
+        return np.concatenate(([0], nl + 1)).astype(np.int64)
+
+    carry = b""
+    while True:
+        # read into a fresh buffer AFTER the carried tail — a bytes
+        # concat would copy the whole 32MB chunk per iteration.  A new
+        # array per chunk keeps previously-yielded views valid.
+        data_arr = np.empty(len(carry) + _CHUNK_BYTES, np.uint8)
+        nc = len(carry)
+        if nc:
+            data_arr[:nc] = np.frombuffer(carry, np.uint8)
+        got = stream.readinto(memoryview(data_arr.data)[nc:])
+        got = 0 if got is None else int(got)
+        if got == 0:
+            if carry:
+                data_arr[nc] = 10            # virtual trailing newline
+                buf = data_arr[: nc + 1]
+                yield buf, starts_of(buf)
+            return
+        total = nc + got
+        st = starts_of(data_arr[:total])
+        if len(st) == 1:                     # no newline in this chunk
+            carry = data_arr[:total].tobytes()
+            continue
+        last = int(st[-1])                   # first byte after last '\n'
+        carry = data_arr[last:total].tobytes()
+        yield data_arr[:last], st
+
+
+@dataclasses.dataclass
+class _RawRecords:
+    names: Ragged
+    plus: Ragged
+    seq: Ragged     # concatenated sequence bytes
+    qual: Ragged    # concatenated quality bytes
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+
+class _RecordStream:
+    """Streams FASTQ records as vectorized column arrays, ``count`` at a time."""
+
+    def __init__(self, path: str):
+        self._bundles = _iter_line_bundles(_open_maybe_gz(path))
+        self._buf: Optional[np.ndarray] = None
+        self._starts: Optional[np.ndarray] = None
+        self._cursor = 0          # line index into current bundle
+        self._leftover_lines: List[bytes] = []  # <4 lines crossing bundles
+        self.exhausted = False
+        #: bundle-parse worker pool: the native parse is the biggest
+        #: single cost on the pacing thread; offloading it (disjoint
+        #: row ranges, GIL released in C) lets this thread go straight
+        #: back to reading/scanning the next chunk.  3 workers cover
+        #: the bundles in flight across the current block and the
+        #: deferred-finish previous one.
+        self._pool = None
+        try:
+            from scalce_tpu_torch import native
+            if native.AVAILABLE and hasattr(native, "parse_into_block"):
+                from concurrent.futures import ThreadPoolExecutor
+                self._pool = ThreadPoolExecutor(
+                    max_workers=3, thread_name_prefix="fastq-parse")
+        except Exception:
+            pass
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+            self._pool = None
+
+    def _next_bundle(self) -> bool:
+        try:
+            self._buf, self._starts = next(self._bundles)
+        except StopIteration:
+            self._buf, self._starts = None, None
+            return False
+        self._cursor = 0
+        return True
+
+    def take_block(self, capacity: int, max_len: int, block_id: int
+                   ) -> Optional["ReadBlock"]:
+        """Parse up to ``capacity`` records DIRECTLY into a padded
+        ``ReadBlock`` via the native fast path (None at clean EOF);
+        falls back to ``take_records`` + ``_records_to_block`` when the
+        native library is unavailable."""
+        r = self._take(capacity, max_len, block_id)
+        if isinstance(r, _BlockBuilder):
+            return r.finish(block_id)
+        return r
+
+    def _take(self, capacity: int, max_len: int, block_id: int):
+        """Like :meth:`take_block` but returns the un-finished
+        ``_BlockBuilder`` on the native path (bundle parses possibly
+        still in flight on the pool) — ``iter_blocks`` defers the
+        finish-join by one block so this thread reads/scans block N+1
+        while block N's parses drain."""
+        try:
+            from scalce_tpu_torch import native
+            if not (native.AVAILABLE
+                    and hasattr(native, "parse_into_block")):
+                raise ImportError
+        except Exception:
+            rec = self.take_records(capacity)
+            if rec is None:
+                return None
+            return _records_to_block(rec, capacity, max_len, block_id)
+
+        bb = _BlockBuilder(capacity, max_len, pool=self._pool)
+        while bb.got < capacity:
+            if self._buf is None or self._cursor >= len(self._starts) - 1:
+                if not self._next_bundle():
+                    break
+                continue
+            starts, buf = self._starts, self._buf
+
+            if self._leftover_lines:    # record crossing bundles (rare)
+                while (len(self._leftover_lines) < 4
+                       and self._cursor < len(starts) - 1):
+                    s, e = starts[self._cursor], starts[self._cursor + 1] - 1
+                    if e > s and buf[e - 1] == 13:
+                        e -= 1
+                    self._leftover_lines.append(buf[s:e].tobytes())
+                    self._cursor += 1
+                if len(self._leftover_lines) < 4:
+                    self._buf = None
+                    continue
+                nm, sq, pl, ql = self._leftover_lines
+                self._leftover_lines = []
+                bb.add_single(nm, sq, pl, ql)
+                continue
+
+            n_lines_avail = len(starts) - 1 - self._cursor
+            n_rec = min(capacity - bb.got, n_lines_avail // 4)
+            if n_rec == 0:
+                while self._cursor < len(starts) - 1:
+                    s, e = starts[self._cursor], starts[self._cursor + 1] - 1
+                    if e > s and buf[e - 1] == 13:
+                        e -= 1
+                    self._leftover_lines.append(buf[s:e].tobytes())
+                    self._cursor += 1
+                self._buf = None
+                continue
+
+            bb.add_bundle(buf, starts, self._cursor, n_rec)
+            self._cursor += 4 * n_rec
+
+        if bb.got == 0:
+            if self._leftover_lines:
+                raise ValueError("truncated FASTQ: dangling partial record")
+            self.exhausted = True
+            return None
+        return bb
+
+    def take_records(self, count: int) -> Optional[_RawRecords]:
+        """Return up to ``count`` records (None at clean EOF)."""
+        names: List[Ragged] = []
+        plus: List[Ragged] = []
+        seqs: List[Ragged] = []
+        quals: List[Ragged] = []
+        got = 0
+
+        while got < count:
+            if self._buf is None or self._cursor >= len(self._starts) - 1:
+                if not self._next_bundle():
+                    break
+                continue
+            starts, buf = self._starts, self._buf
+
+            # Handle a partial record crossing the previous bundle (rare).
+            if self._leftover_lines:
+                while (len(self._leftover_lines) < 4
+                       and self._cursor < len(starts) - 1):
+                    s, e = starts[self._cursor], starts[self._cursor + 1] - 1
+                    if e > s and buf[e - 1] == 13:
+                        e -= 1
+                    self._leftover_lines.append(buf[s:e].tobytes())
+                    self._cursor += 1
+                if len(self._leftover_lines) < 4:
+                    self._buf = None
+                    continue
+                nm, sq, pl, ql = self._leftover_lines
+                self._leftover_lines = []
+                _check_record(nm, sq, pl, ql)
+                names.append(Ragged.from_list([nm[1:]]))
+                plus.append(Ragged.from_list([pl[1:]]))
+                seqs.append(Ragged.from_list([sq]))
+                quals.append(Ragged.from_list([ql]))
+                got += 1
+                continue
+
+            n_lines_avail = len(starts) - 1 - self._cursor
+            n_rec = min(count - got, n_lines_avail // 4)
+            if n_rec == 0:
+                # stash leftover (<4) lines and move to next bundle
+                while self._cursor < len(starts) - 1:
+                    s, e = starts[self._cursor], starts[self._cursor + 1] - 1
+                    if e > s and buf[e - 1] == 13:
+                        e -= 1
+                    self._leftover_lines.append(buf[s:e].tobytes())
+                    self._cursor += 1
+                self._buf = None
+                continue
+
+            base = self._cursor
+            idx = base + 4 * np.arange(n_rec, dtype=np.int64)
+            name_s, name_e = starts[idx], _strip_cr(buf, starts[idx + 1] - 1)
+            seq_s, seq_e = starts[idx + 1], _strip_cr(buf, starts[idx + 2] - 1)
+            plus_s, plus_e = starts[idx + 2], _strip_cr(buf, starts[idx + 3] - 1)
+            qual_s, qual_e = starts[idx + 3], _strip_cr(buf, starts[idx + 4] - 1)
+
+            if not np.all(buf[name_s] == ord("@")):
+                raise ValueError(
+                    "malformed FASTQ: record does not start with '@'")
+            if not np.all(buf[plus_s] == ord("+")):
+                raise ValueError("malformed FASTQ: missing '+' separator line")
+            lens = (seq_e - seq_s).astype(np.int64)
+            if not np.all(lens == qual_e - qual_s):
+                raise ValueError("malformed FASTQ: seq/qual length mismatch")
+
+            name_lens = (name_e - name_s - 1).astype(np.int64)
+            plus_lens = (plus_e - plus_s - 1).astype(np.int64)
+            names.append(Ragged(ragged_gather(buf, name_s + 1, name_lens),
+                                lens_to_offsets(name_lens)))
+            plus.append(Ragged(ragged_gather(buf, plus_s + 1, plus_lens),
+                               lens_to_offsets(plus_lens)))
+            seqs.append(Ragged(ragged_gather(buf, seq_s, lens),
+                               lens_to_offsets(lens)))
+            quals.append(Ragged(ragged_gather(buf, qual_s, lens),
+                                lens_to_offsets(lens)))
+            got += n_rec
+            self._cursor += 4 * n_rec
+
+        if got == 0:
+            if self._leftover_lines:
+                raise ValueError("truncated FASTQ: dangling partial record")
+            self.exhausted = True
+            return None
+        return _RawRecords(names=Ragged.concat(names),
+                           plus=Ragged.concat(plus),
+                           seq=Ragged.concat(seqs),
+                           qual=Ragged.concat(quals))
+
+
+_PARSE_ERRORS = {
+    -1: "malformed FASTQ: record does not start with '@'",
+    -2: "malformed FASTQ: missing '+' separator line",
+    -3: "malformed FASTQ: seq/qual length mismatch",
+    -6: "quality byte outside '!'..'~' (33..126) — not valid "
+        "FASTQ; refusing to compress lossily by accident",
+}
+
+
+class _BlockBuilder:
+    """Accumulates parsed records straight into padded block arrays
+    (the native ``parse_into_block`` fast path — no intermediate ragged
+    gather+scatter, which double-copied every seq/qual byte).
+
+    With a ``pool``, each bundle's native parse runs as a WORKER task:
+    row ranges are assigned serially up front (disjoint writes into the
+    padded arrays are thread-safe; the C call releases the GIL), each
+    task keeps private name/plus/exception buffers, and ``finish``
+    joins and merges segments in submission order — so output is
+    byte-identical to the serial path while the pacing thread goes
+    back to reading/scanning the next chunk immediately."""
+
+    def __init__(self, capacity: int, max_len: int, pool=None):
+        self.seq, self.qual, self.lengths = _pooled_block_arrays(
+            capacity, max_len)
+        self.max_len = max_len
+        #: ordered parse segments: ("done", seg) | ("fut", Future[seg]);
+        #: seg = (rc, name_cat, name_lens, plus_cat, plus_lens,
+        #:        exc_pos, exc_byte)
+        self.segments: List = []
+        self.pool = pool
+        self.got = 0
+
+    def _parse_bundle(self, buf: np.ndarray, starts: np.ndarray,
+                      line0: int, n_rec: int, row0: int):
+        from scalce_tpu_torch import native
+        # tight per-stream caps from the line offsets: the old
+        # whole-bundle-sized scratch (2 x ~32MB np.empty per bundle)
+        # cost ~0.4s of CPU per 505MB in page-table churn alone
+        st = starts[line0: line0 + 4 * n_rec + 1]
+        name_cap = int((st[1::4] - st[0::4][: n_rec]).sum())
+        plus_cap = int((st[3::4] - st[2::4][: n_rec]).sum())
+        name_cat = np.empty(name_cap, np.uint8)
+        plus_cat = np.empty(plus_cap, np.uint8)
+        name_lens = np.empty(n_rec, np.int64)
+        plus_lens = np.empty(n_rec, np.int64)
+        meta = np.empty(3, np.int64)
+        exc_cap = 1024
+        while True:
+            exc_pos = np.empty(exc_cap, np.int64)
+            exc_byte = np.empty(exc_cap, np.uint8)
+            rc = native.parse_into_block(
+                buf, starts, line0, n_rec, row0, self.max_len,
+                BASE_TO_CODE, self.seq, self.qual, self.lengths,
+                name_cat, name_lens, plus_cat, plus_lens,
+                exc_pos, exc_byte, 0, meta)
+            if rc == -4:           # exception buffer full: grow + retry
+                exc_cap *= 8
+                continue
+            break
+        if rc < 0:
+            return (rc, None, None, None, None, None, None)
+        # caps are tight (only '@'/'+'/CR bytes of slack), so the
+        # trimming views pin no meaningful dead memory — no copy
+        return (0, name_cat[: int(meta[1])], name_lens,
+                plus_cat[: int(meta[2])], plus_lens,
+                exc_pos[: int(meta[0])], exc_byte[: int(meta[0])])
+
+    def add_bundle(self, buf: np.ndarray, starts: np.ndarray,
+                   line0: int, n_rec: int) -> None:
+        row0 = self.got
+        self.got += n_rec
+        if self.pool is not None:
+            self.segments.append(("fut", self.pool.submit(
+                self._parse_bundle, buf, starts, line0, n_rec, row0)))
+        else:
+            seg = self._parse_bundle(buf, starts, line0, n_rec, row0)
+            self._raise_on_error(seg[0])
+            self.segments.append(("done", seg))
+
+    def _raise_on_error(self, rc: int) -> None:
+        if rc == -5:
+            raise ValueError(
+                f"read length exceeds max_read_len={self.max_len}; "
+                f"re-run with a larger --max-read-len")
+        if rc < 0:
+            raise ValueError(_PARSE_ERRORS[rc])
+
+    def add_single(self, nm: bytes, sq: bytes, pl: bytes, ql: bytes
+                   ) -> None:
+        """Slow path for a record assembled across bundle boundaries."""
+        _check_record(nm, sq, pl, ql)
+        l = len(sq)
+        if l > self.max_len:
+            raise ValueError(
+                f"read length {l} exceeds max_read_len={self.max_len}; "
+                f"re-run with a larger --max-read-len")
+        qarr = np.frombuffer(ql, np.uint8)
+        if qarr.size and (int(qarr.min()) < 33 or int(qarr.max()) > 126):
+            raise ValueError(_PARSE_ERRORS[-6])
+        sarr = np.frombuffer(sq, np.uint8)
+        codes = BASE_TO_CODE[sarr]
+        exc_local = np.flatnonzero(codes == 255)
+        exc_pos = self.got * self.max_len + exc_local
+        exc_byte = sarr[exc_local].copy() if exc_local.size else _EMPTY_U8
+        self.seq[self.got, :l] = np.where(codes == 255, 0, codes)
+        self.qual[self.got, :l] = qarr
+        self.lengths[self.got] = l
+        self.segments.append(("done", (
+            0, np.frombuffer(nm[1:], np.uint8),
+            np.asarray([len(nm) - 1], np.int64),
+            np.frombuffer(pl[1:], np.uint8),
+            np.asarray([len(pl) - 1], np.int64),
+            exc_pos, exc_byte)))
+        self.got += 1
+
+    def finish(self, block_id: int) -> ReadBlock:
+        n = self.got
+        name_chunks, name_lens_l = [], []
+        plus_chunks, plus_lens_l = [], []
+        exc_pos_l, exc_byte_l = [], []
+        for kind, seg in self.segments:
+            if kind == "fut":
+                seg = seg.result()
+            self._raise_on_error(seg[0])
+            _, nc, nl, pc, pl, ep, eb = seg
+            name_chunks.append(nc)
+            name_lens_l.append(nl)
+            plus_chunks.append(pc)
+            plus_lens_l.append(pl)
+            if ep.size:
+                exc_pos_l.append(ep)
+                exc_byte_l.append(eb)
+        name_lens = (np.concatenate(name_lens_l) if name_lens_l
+                     else np.zeros(0, np.int64))
+        names = Ragged(np.concatenate(name_chunks)
+                       if name_chunks else _EMPTY_U8,
+                       lens_to_offsets(name_lens))
+        plus_lens = (np.concatenate(plus_lens_l) if plus_lens_l
+                     else np.zeros(0, np.int64))
+        plus: Optional[Ragged] = None
+        if plus_lens.sum() > 0:
+            plus = Ragged(np.concatenate(plus_chunks),
+                          lens_to_offsets(plus_lens))
+        exc_pos = (np.concatenate(exc_pos_l) if exc_pos_l
+                   else np.empty(0, np.int64))
+        exc_byte = (np.concatenate(exc_byte_l) if exc_byte_l
+                    else _EMPTY_U8)
+        return ReadBlock(seq=self.seq, qual=self.qual,
+                         lengths=self.lengths, n_reads=n,
+                         exc_pos=exc_pos, exc_byte=exc_byte,
+                         names=names, plus=plus, block_id=block_id)
+
+
+def _strip_cr(buf: np.ndarray, ends: np.ndarray) -> np.ndarray:
+    has_cr = buf[np.maximum(ends - 1, 0)] == 13
+    return ends - has_cr.astype(np.int64)
+
+
+def _check_record(nm: bytes, sq: bytes, pl: bytes, ql: bytes) -> None:
+    if not nm.startswith(b"@"):
+        raise ValueError("malformed FASTQ: record does not start with '@'")
+    if not pl.startswith(b"+"):
+        raise ValueError("malformed FASTQ: missing '+' separator line")
+    if len(sq) != len(ql):
+        raise ValueError("malformed FASTQ: seq/qual length mismatch")
+
+
+def _records_to_block(rec: _RawRecords, capacity: int, max_len: int,
+                      block_id: int) -> ReadBlock:
+    n = len(rec)
+    lens = rec.seq.lens
+    if lens.size and int(lens.max()) > max_len:
+        raise ValueError(
+            f"read length {int(lens.max())} exceeds max_read_len={max_len}; "
+            f"re-run with a larger --max-read-len")
+
+    seq = np.zeros((capacity, max_len), dtype=np.uint8)
+    qual = np.zeros((capacity, max_len), dtype=np.uint8)
+    lengths = np.zeros(capacity, dtype=np.int32)
+    lengths[:n] = lens
+
+    if n:
+        # lossless round-trip requires qualities inside the printable
+        # FASTQ range '!'..'~' (the entropy coder's 94-symbol alphabet);
+        # reject instead of silently clamping
+        qc = rec.qual.cat
+        if qc.size and (int(qc.min()) < 33 or int(qc.max()) > 126):
+            raise ValueError(
+                "quality byte outside '!'..'~' (33..126) — not valid "
+                "FASTQ; refusing to compress lossily by accident")
+    if n and _NATIVE:
+        # one native pass: scatter + base translation + exception capture
+        exc_pos, exc_byte = _native.fill_block(
+            rec.seq.cat, rec.seq.offsets[:-1],
+            rec.qual.cat, rec.qual.offsets[:-1],
+            lens, max_len, BASE_TO_CODE, seq, qual)
+    elif n:
+        # scatter ragged cats into padded rows, vectorized
+        flat_starts = np.arange(n, dtype=np.int64) * max_len
+        flat_seq = seq.reshape(-1)
+        ragged_scatter(flat_seq, flat_starts, rec.seq.cat, lens)
+        ragged_scatter(qual.reshape(-1), flat_starts, rec.qual.cat, lens)
+        codes = BASE_TO_CODE[flat_seq]
+        valid = (np.arange(max_len, dtype=np.int64)[None, :]
+                 < lengths[:, None]).reshape(-1)
+        exc_mask = (codes == 255) & valid
+        exc_pos = np.flatnonzero(exc_mask)
+        exc_byte = flat_seq[exc_pos]
+        np.copyto(flat_seq, np.where(codes == 255, 0, codes))
+    else:
+        exc_pos = np.empty(0, np.int64)
+        exc_byte = _EMPTY_U8
+
+    plus: Optional[Ragged] = rec.plus
+    if int(rec.plus.offsets[-1]) == 0:
+        plus = None  # every '+' line was bare
+    return ReadBlock(seq=seq, qual=qual, lengths=lengths, n_reads=n,
+                     exc_pos=exc_pos, exc_byte=exc_byte,
+                     names=rec.names, plus=plus, block_id=block_id)
+
+
+def iter_blocks(path: str, capacity: int, max_len: int) -> Iterator[ReadBlock]:
+    """Parse a FASTQ file into fixed-shape ``ReadBlock``s of ``capacity``
+    reads.  One block's pool parses stay IN FLIGHT while this thread
+    reads/scans the next block; the finish-join is deferred one block
+    (output identical — segments merge in submission order).
+    ``max_len=0`` auto-sizes from the input head (probe_max_read_len)."""
+    if max_len == 0:
+        max_len = probe_max_read_len((path,)) or 128
+    stream = _RecordStream(path)
+    pending = None
+    block_id = 0
+    try:
+        while True:
+            item = stream._take(capacity, max_len, block_id)
+            if pending is not None:
+                pb, pid = pending
+                yield (pb.finish(pid) if isinstance(pb, _BlockBuilder)
+                       else pb)
+                pending = None
+            if item is None:
+                return
+            pending = (item, block_id)
+            block_id += 1
+    finally:
+        stream.close()
+
+
+def iter_paired_blocks(path1: str, path2: str, capacity: int,
+                       max_len: int) -> Iterator[Tuple[ReadBlock, ReadBlock]]:
+    """Lockstep block iteration over a paired-end FASTQ pair.
+
+    Mate-2 blocks carry the reads pairing 1:1 with mate-1 rows, so one
+    permutation computed from mate 1 reorders both (SURVEY.md §2
+    "Paired-end sync").  ``max_len=0`` auto-sizes from both mates'
+    heads (probe_max_read_len).
+    """
+    if max_len == 0:
+        max_len = probe_max_read_len((path1, path2)) or 128
+    s1 = _RecordStream(path1)
+    s2 = _RecordStream(path2)
+    block_id = 0
+    while True:
+        b1 = s1.take_block(capacity, max_len, block_id)
+        b2 = s2.take_block(capacity, max_len, block_id)
+        if b1 is None and b2 is None:
+            return
+        if b1 is None or b2 is None or b1.n_reads != b2.n_reads:
+            raise ValueError("paired-end inputs have differing read counts")
+        yield (b1, b2)
+        block_id += 1
+
+
+def write_fastq_records(out: IO[bytes], seq: np.ndarray, qual: np.ndarray,
+                        lengths: np.ndarray, n_reads: int,
+                        exc_pos: np.ndarray, exc_byte: np.ndarray,
+                        names: Ragged,
+                        plus: Optional[Ragged]) -> None:
+    """Render ``n_reads`` records and write them to ``out``."""
+    buf = render_fastq_records(seq, qual, lengths, n_reads, exc_pos,
+                               exc_byte, names, plus)
+    if buf is not None:
+        out.write(buf)
+
+
+def render_fastq_records(seq: np.ndarray, qual: np.ndarray,
+                         lengths: np.ndarray, n_reads: int,
+                         exc_pos: np.ndarray, exc_byte: np.ndarray,
+                         names: Ragged,
+                         plus: Optional[Ragged]) -> Optional[bytes]:
+    """Render ``n_reads`` records to FASTQ bytes, fully vectorized.
+
+    ``seq`` holds 2-bit codes; exceptions are re-applied before assembly so
+    output bases are byte-exact with the original input.  Split from the
+    file write so a pipelined decompressor can render on worker threads
+    and write in block order on the main thread.
+    """
+    if n_reads == 0:
+        return None
+    max_len = seq.shape[1]
+    lens = lengths[:n_reads].astype(np.int64)
+    name_lens = names.lens[:n_reads]
+    if plus is None:
+        plus_lens = np.zeros(n_reads, dtype=np.int64)
+        plus_cat = _EMPTY_U8
+    else:
+        plus_lens = plus.lens[:n_reads]
+        plus_cat = plus.cat
+    # record = '@' name '\n' seq '\n' '+' plus '\n' qual '\n'
+    rec_lens = 1 + name_lens + 1 + lens + 1 + 1 + plus_lens + 1 + lens + 1
+    rec_off = lens_to_offsets(rec_lens)
+    buf = np.empty(int(rec_off[-1]), dtype=np.uint8)
+
+    if _NATIVE and hasattr(_native, "render_fastq2"):
+        # codes translate to ASCII during the copy; exceptions are
+        # patched into the OUTPUT buffer (rare) — no 13MB intermediate
+        # bases array, and the result stays an ndarray (file.write
+        # accepts the buffer protocol; a .tobytes() would copy 30MB)
+        _native.render_fastq2(
+            np.ascontiguousarray(seq[:n_reads]), CODE_TO_BASE,
+            np.ascontiguousarray(qual[:n_reads]).reshape(-1),
+            lens, max_len,
+            names.cat[: int(names.offsets[n_reads])],
+            names.offsets[: n_reads + 1] - names.offsets[0],
+            plus_cat if plus is not None else None,
+            (plus.offsets[: n_reads + 1] - plus.offsets[0])
+            if plus is not None else None,
+            buf, rec_off)
+        if exc_pos.size:
+            keep = exc_pos < n_reads * max_len
+            rows = exc_pos[keep] // max_len
+            cols = exc_pos[keep] % max_len
+            # padding-region positions (col >= len) patched the harmless
+            # flat bases array on the old path; here the write lands in
+            # the OUTPUT buffer, so without this guard they would
+            # corrupt newline/plus/qual bytes of the record
+            keep2 = cols < lens[rows]
+            rows, cols = rows[keep2], cols[keep2]
+            at = rec_off[rows] + 2 + name_lens[rows] + cols
+            buf[at] = exc_byte[keep][keep2]
+        return buf
+
+    bases = CODE_TO_BASE[seq[:n_reads].reshape(-1)]
+    if exc_pos.size:
+        keep = exc_pos < n_reads * max_len
+        bases[exc_pos[keep]] = exc_byte[keep]
+    if _NATIVE:
+        _native.render_fastq(
+            np.ascontiguousarray(bases), np.ascontiguousarray(
+                qual[:n_reads]).reshape(-1),
+            lens, max_len,
+            names.cat[: int(names.offsets[n_reads])],
+            names.offsets[: n_reads + 1] - names.offsets[0],
+            plus_cat if plus is not None else None,
+            (plus.offsets[: n_reads + 1] - plus.offsets[0])
+            if plus is not None else None,
+            buf, rec_off)
+        return buf.tobytes()
+
+    at = rec_off[:-1]
+    buf[at] = ord("@")
+    ragged_scatter(buf, at + 1, names.cat[: int(names.offsets[n_reads])],
+                   name_lens)
+    at = at + 1 + name_lens
+    buf[at] = 10
+    seq_starts = np.arange(n_reads, dtype=np.int64) * max_len
+    ragged_scatter(buf, at + 1, ragged_gather(bases, seq_starts, lens), lens)
+    at = at + 1 + lens
+    buf[at] = 10
+    buf[at + 1] = ord("+")
+    ragged_scatter(buf, at + 2, plus_cat, plus_lens)
+    at = at + 2 + plus_lens
+    buf[at] = 10
+    ragged_scatter(buf, at + 1,
+                   ragged_gather(qual[:n_reads].reshape(-1), seq_starts, lens),
+                   lens)
+    buf[at + 1 + lens] = 10
+    return buf.tobytes()

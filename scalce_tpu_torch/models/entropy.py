@@ -58,7 +58,7 @@ def device_normalize(counts: torch.Tensor, n_ctx: int, n_syms: int
 def host_normalize(counts: np.ndarray, n_ctx: int, n_syms: int
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """NumPy/C mirror of :func:`device_normalize` (same tables)."""
-    from scalce_tpu import native as _native
+    from scalce_tpu_torch import native as _native
     if _native.AVAILABLE and hasattr(_native, "host_normalize_tbl"):
         return _native.host_normalize_tbl(np.asarray(counts), n_ctx, n_syms)
     return host_normalize_np(counts, n_ctx, n_syms)

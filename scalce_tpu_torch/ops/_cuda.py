@@ -42,9 +42,9 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "scalce_core_rank": [_P, _P, _I, _I, _I, _U] + [_P] * 6 + [_P],
     "scalce_hist_ctx": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    "scalce_rans_encode": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "scalce_rans_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _P, _P],
+    "scalce_rans_encode": [_P, _P, _P] + [_I] * 6 + [_P] * 4,
+    "scalce_divmod_recip": [_P, _P, _I, _P, _P, _P],
+    "scalce_rans_decode": [_P] * 4 + [_I] * 7 + [_P, _P],
     "scalce_histogram": [_P, _L, _I, _P, _P],
     "scalce_rans_encode_flat": [_P, _P, _I, _I, _P, _P, _P, _P],
 }

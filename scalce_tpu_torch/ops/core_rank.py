@@ -42,14 +42,10 @@ def rank_argmin_plain(kmers: torch.Tensor, invalid: torch.Tensor, k: int,
     return bf, pf, br, pfw, kf, kr
 
 
-def rank_argmin(kmers: torch.Tensor, invalid: torch.Tensor, k: int,
-                seed: int):
-    """Per row of the rank grid: (min forward rank, its first position,
-    min reverse-complement rank, its last forward position, forward
-    k-mer at pf, RC k-mer at pfw).  CPU tensors take the plain version;
-    CUDA tensors launch ``csrc/core_rank.cu``."""
-    if kmers.device.type == "cpu":
-        return rank_argmin_plain(kmers, invalid, k, seed)
+def prepare(kmers: torch.Tensor, invalid: torch.Tensor, k: int, seed: int):
+    """The CUDA path of :func:`rank_argmin` up to the launch.  Returns
+    ``(launch, result)``: each ``launch()`` runs the kernel once;
+    ``result()`` gives :func:`rank_argmin`'s return value."""
     B, P = kmers.shape
     if P < 1:
         raise ValueError("rank_argmin: no k-mer positions")
@@ -59,10 +55,26 @@ def rank_argmin(kmers: torch.Tensor, invalid: torch.Tensor, k: int,
     _cuda.require(bad, "invalid", torch.bool, (B, P), km.device)
     outs = [torch.empty(B, dtype=torch.int32, device=km.device)
             for _ in range(6)]
-    _cuda.launch("scalce_core_rank", km.device, km.data_ptr(), bad.data_ptr(),
-                 B, P, k, seed & 0xFFFFFFFF, *(o.data_ptr() for o in outs))
+
+    def launch():
+        _cuda.launch("scalce_core_rank", km.device, km.data_ptr(),
+                     bad.data_ptr(), B, P, k, seed & 0xFFFFFFFF,
+                     *(o.data_ptr() for o in outs))
+    return launch, lambda: tuple(from_u32_bits(o) for o in outs)
+
+
+def rank_argmin(kmers: torch.Tensor, invalid: torch.Tensor, k: int,
+                seed: int):
+    """Per row of the rank grid: (min forward rank, its first position,
+    min reverse-complement rank, its last forward position, forward
+    k-mer at pf, RC k-mer at pfw).  CPU tensors take the plain version;
+    CUDA tensors launch ``csrc/core_rank.cu``."""
+    if kmers.device.type == "cpu":
+        return rank_argmin_plain(kmers, invalid, k, seed)
+    launch, result = prepare(kmers, invalid, k, seed)
+    launch()
     rank_argmin.launches += 1
-    return tuple(from_u32_bits(o) for o in outs)
+    return result()
 
 
 rank_argmin.launches = 0

@@ -32,16 +32,30 @@ def hist_ctx(sym: torch.Tensor, ctx: torch.Tensor, R: int, PB: int,
     ``csrc/hist_ctx.cu``."""
     if sym.device.type == "cpu":
         return hist_ctx_plain(sym, ctx, R, PB, n_syms)
+    launch, hist = prepare(sym, ctx, R, PB, col_div, n_syms)
+    launch()
+    hist_ctx.launches += 1
+    return hist
+
+
+def prepare(sym: torch.Tensor, ctx: torch.Tensor, R: int, PB: int,
+            col_div: int, n_syms: int = 94):
+    """The CUDA path of :func:`hist_ctx` up to the launch.  Returns
+    ``(launch, hist)``: each ``launch()`` zeroes ``hist`` and runs the
+    kernel once into it."""
     B, L = sym.shape
     s32, c32 = to_u32_bits(sym), to_u32_bits(ctx)
     _cuda.require(s32, "sym", torch.int32, (B, L))
     _cuda.require(c32, "ctx", torch.int32, (B, L), s32.device)
     n_ctx = 1 + PB * R
-    hist = torch.zeros(n_ctx * n_syms, dtype=torch.int32, device=s32.device)
-    _cuda.launch("scalce_hist_ctx", s32.device, s32.data_ptr(), c32.data_ptr(),
-                 B, L, R, PB, col_div, n_syms, n_ctx, hist.data_ptr())
-    hist_ctx.launches += 1
-    return hist
+    hist = torch.empty(n_ctx * n_syms, dtype=torch.int32, device=s32.device)
+
+    def launch():
+        hist.zero_()
+        _cuda.launch("scalce_hist_ctx", s32.device, s32.data_ptr(),
+                     c32.data_ptr(), B, L, R, PB, col_div, n_syms, n_ctx,
+                     hist.data_ptr())
+    return launch, hist
 
 
 hist_ctx.launches = 0

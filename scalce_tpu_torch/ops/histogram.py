@@ -29,14 +29,26 @@ def histogram(idx: torch.Tensor, n_cells: int) -> torch.Tensor:
     ``csrc/histogram.cu``."""
     if idx.device.type == "cpu":
         return histogram_plain(idx, n_cells)
+    launch, hist = prepare(idx, n_cells)
+    launch()
+    histogram.launches += 1
+    return hist
+
+
+def prepare(idx: torch.Tensor, n_cells: int):
+    """The CUDA path of :func:`histogram` up to the launch.  Returns
+    ``(launch, hist)``: each ``launch()`` zeroes ``hist`` and runs the
+    kernel once into it."""
     i32 = idx.reshape(-1).to(torch.int32).contiguous()
     dev = i32.device
     _cuda.require(i32, "idx", torch.int32, device=dev)
-    hist = torch.zeros(n_cells, dtype=torch.int32, device=dev)
-    _cuda.launch("scalce_histogram", dev, i32.data_ptr(), i32.numel(),
-                 n_cells, hist.data_ptr())
-    histogram.launches += 1
-    return hist
+    hist = torch.empty(n_cells, dtype=torch.int32, device=dev)
+
+    def launch():
+        hist.zero_()
+        _cuda.launch("scalce_histogram", dev, i32.data_ptr(), i32.numel(),
+                     n_cells, hist.data_ptr())
+    return launch, hist
 
 
 histogram.launches = 0

@@ -85,6 +85,20 @@ def cum_rows(freq: torch.Tensor) -> torch.Tensor:
     return cum
 
 
+def bucket_slabs(table: torch.Tensor, R: int) -> torch.Tensor:
+    """A per-context table ``[..., C, E]`` (row 0, then position buckets
+    of R rows: the quality context model) in the layout the quality
+    kernels stage: row 0 as it is, then each bucket transposed to
+    ``[E, R]``.  The lanes of a warp read one entry each of different rows
+    of one bucket, mostly at nearby entries, so they read neighbouring
+    shared-memory words instead of rows 192 bytes apart in the same few
+    banks.  Returns ``[..., C*E]``."""
+    *lead, C, E = table.shape
+    buckets = table[..., 1:, :].reshape(*lead, (C - 1) // R, R, E)
+    return torch.cat([table[..., 0, :],
+                      buckets.transpose(-1, -2).reshape(*lead, -1)], dim=-1)
+
+
 def rans_decode(states: torch.Tensor, words: torch.Tensor,
                 cum: torch.Tensor,
                 row_fn: Callable[[int, torch.Tensor, torch.Tensor],

@@ -44,6 +44,16 @@ def encode_scan_flat(f_all: torch.Tensor, c_all: torch.Tensor):
     ``csrc/rans_encode_flat.cu``."""
     if f_all.device.type == "cpu":
         return encode_scan_flat_plain(f_all, c_all)
+    launch, result = prepare(f_all, c_all)
+    launch()
+    encode_scan_flat.launches += 1
+    return result()
+
+
+def prepare(f_all: torch.Tensor, c_all: torch.Tensor):
+    """The CUDA path of :func:`encode_scan_flat` up to the launch.
+    Returns ``(launch, result)``: each ``launch()`` runs the kernel once;
+    ``result()`` gives :func:`encode_scan_flat`'s return value."""
     T, N = f_all.shape
     f32, c32 = to_u32_bits(f_all), to_u32_bits(c_all)
     dev = f32.device
@@ -52,11 +62,13 @@ def encode_scan_flat(f_all: torch.Tensor, c_all: torch.Tensor):
     states = torch.empty(N, dtype=torch.int32, device=dev)
     words = torch.empty((T, N), dtype=torch.int16, device=dev)
     emits = torch.empty((T, N), dtype=torch.bool, device=dev)
-    _cuda.launch("scalce_rans_encode_flat", dev, f32.data_ptr(),
-                 c32.data_ptr(), N, T, states.data_ptr(), words.data_ptr(),
-                 emits.data_ptr())
-    encode_scan_flat.launches += 1
-    return (from_u32_bits(states), words.to(torch.int32) & 0xFFFF, emits)
+
+    def launch():
+        _cuda.launch("scalce_rans_encode_flat", dev, f32.data_ptr(),
+                     c32.data_ptr(), N, T, states.data_ptr(),
+                     words.data_ptr(), emits.data_ptr())
+    return launch, lambda: (from_u32_bits(states),
+                            words.to(torch.int32) & 0xFFFF, emits)
 
 
 encode_scan_flat.launches = 0

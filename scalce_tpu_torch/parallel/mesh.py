@@ -24,9 +24,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from scalce_tpu.config import Config, resolve_read_len
-from scalce_tpu.io.fastq import ReadBlock
-from scalce_tpu.streams.seqs import _pack2bit_np
+from scalce_tpu_torch.config import Config, resolve_read_len
+from scalce_tpu_torch.io.fastq import ReadBlock
+from scalce_tpu_torch.streams.seqs import _pack2bit_np
 from scalce_tpu_torch import convert
 from scalce_tpu_torch.device import resolve_device
 from scalce_tpu_torch.ops.histogram import histogram

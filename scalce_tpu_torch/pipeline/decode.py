@@ -14,9 +14,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from scalce_tpu import container
-from scalce_tpu.io.fastq import Ragged, lens_to_offsets, reorder_ragged
-from scalce_tpu.streams import names as names_stream
+from scalce_tpu_torch import container, native
+from scalce_tpu_torch.io.fastq import Ragged, lens_to_offsets, reorder_ragged
+from scalce_tpu_torch.streams import names as names_stream
 from scalce_tpu_torch.device import resolve_device
 from scalce_tpu_torch.timing import stage
 from scalce_tpu_torch.streams import qualities, seqs
@@ -80,7 +80,6 @@ class BlockDecoder:
         if rc.any():
             # flip strand-canonicalized sequences back to input
             # orientation (qualities were never flipped)
-            from scalce_tpu import native
             if native.AVAILABLE:
                 seq = np.ascontiguousarray(seq)
                 native.rc_flip_rows(seq, lengths, rc)

@@ -16,9 +16,9 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 
-from scalce_tpu import container
-from scalce_tpu.config import Config, resolve_read_len
-from scalce_tpu.io import fastq
+from scalce_tpu_torch import container
+from scalce_tpu_torch.config import Config, resolve_read_len
+from scalce_tpu_torch.io import fastq
 from scalce_tpu_torch.models import lossy
 from scalce_tpu_torch.parallel.mesh import ShardedEncoder
 from scalce_tpu_torch.pipeline.decode import DECODE_GROUP, BlockDecoder

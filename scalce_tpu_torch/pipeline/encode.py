@@ -18,11 +18,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from scalce_tpu.config import Config
-from scalce_tpu.io.fastq import ReadBlock
-from scalce_tpu.streams import names as names_stream
-from scalce_tpu.streams.seqs import _pack2bit_np
-from scalce_tpu_torch import convert
+from scalce_tpu_torch import container, convert
+from scalce_tpu_torch.config import Config
+from scalce_tpu_torch.io.fastq import ReadBlock
+from scalce_tpu_torch.streams import names as names_stream
+from scalce_tpu_torch.streams.seqs import _pack2bit_np
 from scalce_tpu_torch.timing import stage
 from scalce_tpu_torch.device import resolve_device
 from scalce_tpu_torch.ops import core_match, reorder
@@ -395,7 +395,6 @@ class BlockEncoder:
 
     def _encode_names(self, block: ReadBlock) -> bytes:
         """Names stay in original order (copy of the reference's)."""
-        from scalce_tpu import container
         n = block.n_reads
         arrays = {"n": np.asarray([n], np.int64)}
         deflate = []

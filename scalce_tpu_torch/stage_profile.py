@@ -32,8 +32,8 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from scalce_tpu.config import Config
-from scalce_tpu.utils.synth import synth_fastq, synth_pair
+from scalce_tpu_torch.config import Config
+from scalce_tpu_torch.utils.synth import synth_fastq, synth_pair
 from scalce_tpu_torch import timing
 from scalce_tpu_torch.device import resolve_device
 from scalce_tpu_torch.pipeline import driver

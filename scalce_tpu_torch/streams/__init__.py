@@ -1,2 +1,1 @@
-"""Per-stream codecs: sequences and qualities (names are the
-reference's own, scalce_tpu.streams.names)."""
+"""Per-stream codecs: sequences, qualities and names."""

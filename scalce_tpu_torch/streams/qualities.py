@@ -4,12 +4,13 @@
 Pass A (:func:`sym_ctx_hist`) builds the symbol and context grids and
 their histogram (kernel K2); the tables are normalized on the device;
 pass B (:func:`encode_from_grids`) rANS-encodes the grids (kernel K3)
-and compacts the emitted words; :func:`decode_batch` decodes D blocks in
-one launch (kernel K4).  A data-parallel group of D blocks takes the
-generic coder path instead: one histogram (:func:`group_histogram`,
-kernel K6) and one encode (:func:`group_encode`, kernel K5) over the
-stacked tables.  The container half — :class:`EncodedQuals`,
-:func:`payload`, :func:`parse` — is a jax-free copy of the reference's.
+and compacts the emitted words; :func:`decode_batch` decodes D blocks'
+quality grids in one launch (kernel K4).  A data-parallel group of D
+blocks takes the generic coder path instead: one histogram
+(:func:`group_histogram`, kernel K6) and one encode
+(:func:`group_encode`, kernel K5) over the stacked tables.  The
+container half — :class:`EncodedQuals`, :func:`payload`, :func:`parse`
+— is a copy of the reference's.
 
 Context model (shared bit-exactly by encode and decode):
 
@@ -31,11 +32,11 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from scalce_tpu.io.fastq import ragged_gather, ragged_scatter
-from scalce_tpu_torch import convert
+from scalce_tpu_torch import container, convert
+from scalce_tpu_torch.io.fastq import ragged_gather, ragged_scatter
 from scalce_tpu_torch.models import entropy
 from scalce_tpu_torch.ops import hist, rans
-from scalce_tpu_torch.ops.rans_decode import decode_scan
+from scalce_tpu_torch.ops.rans_decode import decode_quals
 from scalce_tpu_torch.ops.rans_encode import encode_scan
 
 N_SYMS = 94          # printable FASTQ quality range
@@ -170,7 +171,7 @@ def encode_from_grids(sym: torch.Tensor, ctx: torch.Tensor,
     """Pass B: device tables, rANS encode (K3), compaction, download."""
     T = pick_T(B, L, T_target)
     freq, cum = entropy.device_normalize(counts, n_contexts(order), N_SYMS)
-    states, words, emits = encode_scan(sym, ctx, freq, cum, T)
+    states, words, emits = encode_scan(sym, ctx, freq, cum, T, order)
     packed, wcounts = rans.compact_emissions(words, emits)
     return finish_encoded(freq, states, packed, wcounts, B, L, T, order)
 
@@ -237,8 +238,9 @@ def _qual_from_syms(syms: torch.Tensor, lengths: torch.Tensor, T: int,
 def decode_inputs(encs: List[EncodedQuals], lengths_list, device
                   ) -> Dict[str, torch.Tensor]:
     """Stack D blocks' streams into K4's inputs on ``device``: states
-    ``[D, N]``, words ``[D, N, W]`` (W = the widest power-of-two bucket
-    of the group, floored at max(64, T/8)), freq ``[D, C, 94]``, lengths
+    ``[D, N]``, words ``[D, N, W]`` (u16 bits in int16, half the bytes
+    to upload of the int32 widening; W = the widest power-of-two bucket of
+    the group, floored at max(64, T/8)), freq ``[D, C, 94]``, lengths
     ``[D, B]``.  Blocks must share (B, L, T, order)."""
     if len({(e.B, e.L, e.T, e.order) for e in encs}) != 1:
         raise ValueError("decode_batch requires uniform (B, L, T, order)")
@@ -254,7 +256,7 @@ def decode_inputs(encs: List[EncodedQuals], lengths_list, device
                        e.words, e.counts.astype(np.int64))
     return convert.from_reference({
         "states": np.stack([e.states for e in encs]),
-        "words": words,
+        "words": words.view(np.int16),
         "freq": np.stack([e.freq.reshape(-1, N_SYMS) for e in encs]),
         "lengths": np.stack([np.asarray(ln, np.int32)
                              for ln in lengths_list]),
@@ -263,20 +265,19 @@ def decode_inputs(encs: List[EncodedQuals], lengths_list, device
 
 def decode_batch(encs: List[EncodedQuals], lengths_list, device
                  ) -> List[np.ndarray]:
-    """Decode several blocks' quality grids in ONE K4 launch."""
+    """Decode several blocks' quality grids in ONE K4 launch, which
+    writes them in their final uint8 form."""
     e0 = encs[0]
     x = decode_inputs(encs, lengths_list, device)
-    syms = decode_scan(x["states"], x["words"], x["freq"], x["lengths"],
-                       e0.order, e0.T, e0.L)
-    qual = _qual_from_syms(syms, x["lengths"], e0.T, e0.B, e0.L)
-    return list(qual.cpu().numpy())
+    qual = decode_quals(x["states"], x["words"], x["freq"], x["lengths"],
+                        e0.order, e0.T, e0.L)
+    return list(qual.reshape(len(encs), e0.B, e0.L).cpu().numpy())
 
 
 # ---------------------------------------------------------------------------
 # container payload: copies of the reference's
 
 def payload(enc: EncodedQuals, level: int = 6, backend: str = "gz") -> bytes:
-    from scalce_tpu import container
     return container.pack_arrays({
         "dims": np.asarray([enc.B, enc.L, enc.T, enc.order], np.int64),
         "freq": enc.freq.astype(np.uint16),
@@ -288,7 +289,6 @@ def payload(enc: EncodedQuals, level: int = 6, backend: str = "gz") -> bytes:
 
 
 def parse(blob: bytes) -> EncodedQuals:
-    from scalce_tpu import container
     a = container.unpack_arrays(blob)
     if a.get("dims") is None or a["dims"].shape != (4,):
         raise ValueError("corrupt quality stream: bad dims")

@@ -1,11 +1,10 @@
 """Sequence stream payload (port of ``scalce_tpu/streams/seqs.py``).
 
-The reference module is free of jax except where its side-stream rANS
-coders import ``models/entropy.py`` (which reaches ``ops/rans.py`` and
-jax).  So the coders, :func:`payload` and :func:`parse` are copied here
-with that import pointed at the port's entropy module; every other
-helper, and the native C library, is the reference's own.  Output bytes
-are the reference's (pinned by tests/test_torch_quality.py).
+The side-stream rANS coders, :func:`payload` and :func:`parse` are the
+reference's with its ``models/entropy.py`` (which reaches jax) replaced
+by the port's entropy module; the helpers below are verbatim copies of
+the reference's, on the port's copy of the native C library.  Output
+bytes are the reference's (pinned by tests/test_torch_quality.py).
 """
 
 from __future__ import annotations
@@ -14,13 +13,271 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from scalce_tpu import container
-from scalce_tpu.streams.seqs import (_LIT_CTX, _MASK_CTX, _NATIVE, _T_LIT,
-                                     _T_MASK, _bitpack_u32, _bitunpack_u32,
-                                     _lit_ctx_grid, _mask_ctx_grid, _native,
-                                     _perm_bits, _reconstruct, _unzigzag16,
-                                     _validate, _zigzag16, unpack2bit_np)
+from scalce_tpu_torch import container
 from scalce_tpu_torch.models import entropy
+
+# ---------------------------------------------------------------------------
+# helpers: copies of scalce_tpu/streams/seqs.py's (only the imports differ)
+
+try:
+    from scalce_tpu_torch import native as _native
+    _NATIVE = _native.AVAILABLE and hasattr(_native, "reconstruct_delta")
+except Exception:  # pragma: no cover
+    _native = None
+    _NATIVE = False
+
+
+def unpack2bit_np(words: np.ndarray, n: int) -> np.ndarray:
+    """uint32 words -> first n 2-bit codes (big-endian in-word)."""
+    if _NATIVE and hasattr(_native, "unpack2bit"):
+        return _native.unpack2bit(np.ascontiguousarray(words))[:n]
+    shifts = (2 * np.arange(15, -1, -1)).astype(np.uint32)
+    codes = ((words[:, None] >> shifts) & 3).astype(np.uint8).reshape(-1)
+    return codes[:n]
+
+
+#: literal rANS lane span (fixed so decode derives the lane count)
+_T_LIT = 4096
+_LIT_CTX = 17       # 0 = tail padding; 1 + prev1*4 + prev2 otherwise
+
+
+def _lit_ctx_grid(flat: np.ndarray, n_lits: int, N: int) -> np.ndarray:
+    g = flat.reshape(N, _T_LIT)
+    p1 = np.zeros_like(g)
+    p1[:, 1:] = g[:, :-1]
+    p2 = np.zeros_like(g)
+    p2[:, 2:] = g[:, :-2]
+    valid = np.arange(N * _T_LIT).reshape(N, _T_LIT) < n_lits
+    return np.where(valid,
+                    1 + p1.astype(np.int32) * 4 + p2.astype(np.int32),
+                    0).astype(np.uint16).reshape(-1)
+
+
+#: mask-byte rANS lane span / context count (ctx = 1 + prev byte,
+#: ctx 0 = tail padding)
+_T_MASK = 4096
+_MASK_CTX = 257
+
+
+def _mask_ctx_grid(flat: np.ndarray, nb: int, N: int) -> np.ndarray:
+    g = flat.reshape(N, _T_MASK)
+    p1 = np.zeros_like(g)
+    p1[:, 1:] = g[:, :-1]
+    valid = np.arange(N * _T_MASK).reshape(N, _T_MASK) < nb
+    return np.where(valid, 1 + p1.astype(np.int32), 0).astype(
+        np.int64).reshape(-1)
+
+
+def _perm_bits(n: int) -> int:
+    """Fixed width for permutation entries: ceil(log2(n)), min 1."""
+    return max(1, int(n - 1).bit_length()) if n > 1 else 1
+
+
+def _bitpack_u32(vals: np.ndarray, k: int) -> np.ndarray:
+    if _NATIVE and hasattr(_native, "bitpack_u32"):
+        return _native.bitpack_u32(vals, k)
+    n = vals.shape[0]
+    shifts = np.arange(k, dtype=np.uint32)
+    bits = ((vals.astype(np.uint32)[:, None] >> shifts[None, :])
+            & 1).astype(np.uint8)
+    return np.packbits(bits.reshape(-1), bitorder="little")
+
+
+def _bitunpack_u32(packed: np.ndarray, n: int, k: int) -> np.ndarray:
+    if _NATIVE and hasattr(_native, "bitunpack_u32"):
+        return _native.bitunpack_u32(packed, n, k)
+    shifts = np.arange(k, dtype=np.uint32)
+    ub = np.unpackbits(packed, bitorder="little")[: n * k].reshape(n, k)
+    return (ub.astype(np.uint32) << shifts[None, :]).sum(
+        axis=1, dtype=np.uint32)
+
+
+def _pack2bit_np(codes: np.ndarray) -> np.ndarray:
+    """Host 2-bit pack (pack_bases_u32 layout); codes length % 16 == 0."""
+    if _NATIVE and hasattr(_native, "pack2bit"):
+        return _native.pack2bit(codes)
+    grouped = codes.reshape(-1, 16).astype(np.uint32)
+    shifts = (2 * np.arange(15, -1, -1)).astype(np.uint32)
+    return (grouped << shifts).sum(axis=1, dtype=np.uint32)
+
+
+def _zigzag16(x: np.ndarray) -> np.ndarray:
+    xi = x.astype(np.int32)
+    return (((xi << 1) ^ (xi >> 15)) & 0xFFFF).astype(np.uint16)
+
+
+def _unzigzag16(z: np.ndarray) -> np.ndarray:
+    zi = z.astype(np.uint16).astype(np.int32)
+    return ((zi >> 1) ^ -(zi & 1)).astype(np.int16)
+
+
+def _cell_shifts(shifts: np.ndarray, lens: np.ndarray,
+                 L: int) -> np.ndarray:
+    """Per-cell copy shift matrix (broadcastable [n, 1] or full [n, L]).
+
+    v4-v6: one shift per read.  v7 long-read multi-anchor: ``shifts``
+    is [n, nseg] and column c of a length-``len`` read uses segment
+    ``min(c*nseg//len, nseg-1)``.  Correctness rests on the ENCODER'S
+    MASK CONSTRUCTION (encode.py _assemble_long ``seg_of``) using this
+    exact column map — which it does; the anchor-selection partition in
+    ``segment_minimizer_keys`` intentionally differs at non-divisible
+    lengths and is only an alignment hint (see its docstring)."""
+    if shifts.ndim == 1:
+        return shifts[:, None]
+    n, nseg = shifts.shape
+    col = np.arange(L, dtype=np.int64)[None, :]
+    seg = np.minimum((col * nseg) // np.maximum(lens[:, None], 1),
+                     nseg - 1)
+    return np.take_along_axis(shifts, seg, axis=1)
+
+
+def _validate(a, n: int, B: int, L: int, n_lits: int,
+              deep: bool = True) -> None:
+    """Bounds-check container-supplied fields BEFORE they reach the
+    reconstruction loop — a corrupt/truncated/malicious block must
+    raise, not read/write out of bounds.
+
+    ``deep=False`` (native path) skips the O(n*L) matrix checks — the
+    checked native loop enforces copy bounds per element and the caller
+    verifies literal-count equality; only the cheap O(n) field checks
+    run here."""
+    if not (0 <= n <= B):
+        raise ValueError("corrupt .scalcer block: n_reads out of range")
+    lens = a["lengths"].astype(np.int64)
+    shifts = a["shifts"].astype(np.int64)
+    pred_k = a["pred_k"].astype(np.int64)
+    if lens.shape[0] != n or shifts.shape[0] != n or pred_k.shape[0] != n:
+        raise ValueError("corrupt .scalcer block: field length mismatch")
+    if shifts.ndim not in (1, 2):
+        raise ValueError("corrupt .scalcer block: shifts rank")
+    # mask_bits must be exactly [n, L/8]: a smaller array would broadcast
+    # through the checks below but stride out of bounds in the native
+    # reconstruction loop
+    if a["mask_bits"].ndim != 2 or a["mask_bits"].shape != (n, L // 8):
+        raise ValueError("corrupt .scalcer block: mask_bits shape mismatch")
+    # exceptions: positions must index inside the block's base grid and
+    # pair 1:1 with replacement bytes (u64 >= 2^63 would go negative in
+    # int64 downstream and index from the end)
+    exc_pos = a["exc_pos"]
+    if exc_pos.shape[0] != a["exc_byte"].shape[0]:
+        raise ValueError("corrupt .scalcer block: exception arrays disagree")
+    if exc_pos.size and int(exc_pos.max()) >= n * L:
+        raise ValueError("corrupt .scalcer block: exception position out "
+                         "of range")
+    if lens.size and (lens.max() > L or lens.min() < 0):
+        raise ValueError("corrupt .scalcer block: read length > max")
+    if n and (np.abs(shifts) >= L).any():
+        raise ValueError("corrupt .scalcer block: shift out of range")
+    if deep:
+        bits = np.unpackbits(a["mask_bits"], axis=1,
+                             bitorder="little")[:, :L]
+        rows = np.arange(n)
+        # a row that copies anything must have its predecessor INSIDE
+        # the block: source row = i - 1 - pred_k >= 0  <=>  pred_k < i
+        has_mask = bits.any(axis=1) if n else np.zeros(0, bool)
+        if n and ((pred_k < 0) | ((pred_k >= rows) & has_mask)).any():
+            raise ValueError("corrupt .scalcer block: predecessor before "
+                             "block start")
+        col = np.arange(L)[None, :]
+        if n and (bits & (col >= lens[:, None])).any():
+            raise ValueError("corrupt .scalcer block: mask past read "
+                             "length")
+        # masked source columns must be in-bounds
+        if n:
+            src = col + _cell_shifts(shifts, lens, L)
+            if (bits & ((src < 0) | (src >= L))).any():
+                raise ValueError("corrupt .scalcer block: copy source out "
+                                 "of bounds")
+        need = int(lens.sum() - bits.sum())
+        if n_lits != need or n_lits < 0:
+            raise ValueError("corrupt .scalcer block: literal count "
+                             "mismatch")
+    else:
+        # native path: per-element copy bounds + exact literal count are
+        # enforced inside reconstruct_delta_checked; only the allocation
+        # bound is needed before decoding the literal stream
+        if n_lits < 0 or n_lits > int(lens.sum()):
+            raise ValueError("corrupt .scalcer block: literal count "
+                             "mismatch")
+        # the checked loop IGNORES mask bits past each row's length, so
+        # without this the native path would ACCEPT blocks the numpy
+        # fallback rejects — acceptance must not depend on whether a C
+        # compiler was available (packed-byte check, no O(n*L) unpack)
+        if n:
+            mb = a["mask_bits"]
+            if _NATIVE and hasattr(_native, "mask_tail_check"):
+                bad = _native.mask_tail_check(mb, lens)
+            else:
+                byte_idx = np.arange(L // 8, dtype=np.int64)[None, :]
+                bad = bool(mb[byte_idx >= (lens[:, None] + 7) // 8].any())
+                rem = (lens % 8).astype(np.int64)
+                part = rem != 0
+                if not bad and part.any():
+                    rows = np.flatnonzero(part)
+                    tail = mb[rows, lens[rows] // 8]
+                    keep = ((0xFF << rem[rows]) & 0xFF).astype(np.uint8)
+                    bad = bool((tail & keep).any())
+            if bad:
+                raise ValueError("corrupt .scalcer block: mask past read "
+                                 "length")
+    lit_mode = int(a["lit_mode"][0]) if "lit_mode" in a else 0
+    if lit_mode == 0:
+        if a["lit_packed"].shape[0] < (n_lits + 15) // 16:
+            raise ValueError("corrupt .scalcer block: literal stream short")
+    else:
+        for f in ("lit_freq", "lit_states", "lit_counts", "lit_words"):
+            if f not in a:
+                raise ValueError(f"corrupt .scalcer block: missing {f}")
+        # deeper lit_* consistency checks live in _decode_lits_rans
+    perm = a["perm"].astype(np.int64)
+    if perm.shape[0] != n or (n and (perm.min() < 0 or perm.max() >= n)):
+        raise ValueError("corrupt .scalcer block: bad permutation")
+    if a["rc_bits"].shape[0] < (n + 7) // 8:
+        raise ValueError("corrupt .scalcer block: rc bits short")
+
+
+def _reconstruct(mask_bits: np.ndarray, shifts: np.ndarray,
+                 pred_k: np.ndarray, lits: np.ndarray, lens: np.ndarray,
+                 L: int, out: np.ndarray) -> None:
+    n = len(lens)
+    if n == 0:
+        return
+    # the checked C loop's shift field is i16; v6 long-read blocks pass
+    # wide (i64) shifts and take the numpy fallback, whose bounds come
+    # from the deep _validate pass the caller already ran
+    if _NATIVE and shifts.dtype == np.int16:
+        got = _native.reconstruct_delta_checked(
+            np.ascontiguousarray(mask_bits), np.ascontiguousarray(shifts),
+            np.ascontiguousarray(pred_k), np.ascontiguousarray(lits),
+            lens, L, out)
+        if got != lits.shape[0]:
+            raise ValueError("corrupt .scalcer block: out-of-bounds copy "
+                             "or literal count mismatch")
+        return
+    # NumPy fallback: vectorized within each row, sequential across rows
+    bits = np.unpackbits(mask_bits, axis=1, bitorder="little")[:, :L]
+    nseg = shifts.shape[1] if shifts.ndim == 2 else 1
+    lit_off = 0
+    for i in range(n):
+        l = int(lens[i])
+        m = bits[i, :l].astype(bool)
+        k = int(m.sum())
+        row = out[i]
+        if k:
+            dst = np.flatnonzero(m)
+            if nseg > 1:
+                seg = np.minimum(dst * nseg // max(l, 1), nseg - 1)
+                src_cols = dst + shifts[i][seg]
+            else:
+                src_cols = dst + int(shifts[i])
+            row[dst] = out[i - 1 - int(pred_k[i]), src_cols]
+        nm = np.flatnonzero(~m)
+        row[nm] = lits[lit_off:lit_off + l - k]
+        lit_off += l - k
+
+
+# ---------------------------------------------------------------------------
+# the coders, payload and parse
 
 
 def _host_rans_encode(idx: np.ndarray, freq: np.ndarray, cum: np.ndarray,
@@ -150,7 +407,7 @@ def _encode_mask_rans(mb: np.ndarray, backend: str,
     """Order-1 byte-context rANS over copy-mask (or side-stream) bytes,
     or None when the generic backend wins (compared against the backend
     size of a prefix sample; a pure function of content and config)."""
-    from scalce_tpu.io.backend import compress_bytes
+    from scalce_tpu_torch.io.backend import compress_bytes
     nb = mb.shape[0]
     if nb == 0:
         return None

@@ -46,12 +46,13 @@ def test_core_rank_kernel(cuda, B, P):
            core_rank.rank_argmin_plain(kmers, invalid, k, 0x5CA1CE))
 
 
-def _grids(cuda, order, B, L, seed):
+def _grids(cuda, order, B, L, seed, n_empty=3):
+    """Ragged qualities whose first ``n_empty`` reads are empty."""
     rng = np.random.default_rng(seed)
     walk = np.clip(np.cumsum(rng.integers(-2, 3, (B, L)), axis=1) + 38,
                    2, 80) + 33
     lengths = rng.integers(1, L + 1, B).astype(np.int32)
-    lengths[:3] = 0
+    lengths[:n_empty] = 0
     qual = torch.from_numpy(walk.astype(np.uint8)).to(cuda)
     lengths = torch.from_numpy(lengths).to(cuda)
     return qualities.sym_ctx_hist(qual, lengths, order), lengths
@@ -65,26 +66,87 @@ def test_hist_kernel(cuda, order, L):
     assert torch.equal(counts, hist.hist_ctx_plain(sym, ctx, R, PB))
 
 
-@pytest.mark.parametrize("order", [1, 2, 3])
-@pytest.mark.parametrize("D", [1, 3])
-def test_rans_encode_and_decode_kernels(cuda, order, D):
-    B, L = 512, 64
-    T = qualities.pick_T(B, L, 1024)
+def _encode_blocks(cuda, order, D, B, L, T_target, seed, empty_lane=False):
+    """D blocks' grids encoded by K3 (each against its plain version),
+    then K4's inputs."""
+    T = qualities.pick_T(B, L, T_target)
     encs, lens = [], []
     for d in range(D):
-        (sym, ctx, counts), lengths = _grids(cuda, order, B, L, 10 * d + order)
+        # with empty_lane, lane 0 of block 0 holds only empty reads: its
+        # word stream is empty
+        (sym, ctx, counts), lengths = _grids(
+            cuda, order, B, L, seed + d,
+            n_empty=T // L if empty_lane and d == 0 else 3)
         freq, cum = entropy.device_normalize(
             counts, qualities.n_contexts(order), qualities.N_SYMS)
-        out = rans_encode.encode_scan(sym, ctx, freq, cum, T)
-        _equal(out, rans_encode.encode_scan_plain(sym, ctx, freq, cum, T))
+        want = rans_encode.encode_scan_plain(sym, ctx, freq, cum, T, order)
+        out = rans_encode.encode_scan(sym, ctx, freq, cum, T, order)
+        _equal(out, want)
         packed, wc = rans.compact_emissions(out[1], out[2])
+        if empty_lane and d == 0:
+            assert int(wc[0]) == 0
         encs.append(qualities.finish_encoded(freq, out[0], packed, wc, B, L,
                                              T, order))
         lens.append(lengths.cpu().numpy())
-    x = qualities.decode_inputs(encs, lens, cuda)
+    return qualities.decode_inputs(encs, lens, cuda), T
+
+
+def _check_decode(x, order, T, L):
     args = (x["states"], x["words"], x["freq"], x["lengths"], order, T, L)
+    want = rans_decode.decode_quals_plain(*args)
+    assert want.dtype == torch.uint8
+    assert torch.equal(rans_decode.decode_quals(*args), want)
+    # every byte of the grid is written: none of the fill survives
+    launch, out = rans_decode.prepare(*args)
+    out.fill_(7)
+    launch()
+    assert torch.equal(out, want)
     assert torch.equal(rans_decode.decode_scan(*args),
                        rans_decode.decode_scan_plain(*args))
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("D", [1, 4])
+def test_rans_encode_and_decode_kernels(cuda, order, D):
+    """Ragged lengths, all-padding reads, lane 0 of block 0 with no
+    words; K3 and K4 (decode_quals and decode_scan) exactly equal to
+    their plain versions."""
+    B, L = 512, 64
+    x, T = _encode_blocks(cuda, order, D, B, L, 1024, 10 * order,
+                          empty_lane=True)
+    _check_decode(x, order, T, L)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_rans_kernels_unaligned_lanes(cuda, order):
+    """L = 101 and T = 404 (qual_T_target 512): T % 16 != 0, so lane
+    starts are not 16-byte aligned and the decode's head and tail bytes
+    go out one at a time; L is odd, so K3 loads cell by cell."""
+    B, L = 400, 101
+    x, T = _encode_blocks(cuda, order, 3, B, L, 512, 50 + order)
+    assert T == 404
+    _check_decode(x, order, T, L)
+
+
+def test_reciprocal_divide_is_exact(cuda):
+    """K3's reciprocal divide over every f in 1..4096 at x = k*f - 1,
+    k*f and (f << 20) - 1, and at 10**6 random (x, f) with x < f << 20."""
+    f = np.arange(1, 4097, dtype=np.int64)
+    ks = np.array([1, 2, 3, 5, 255, 256, 4097, 65535, 65537,
+                   (1 << 20) - 1], np.int64)
+    xs = np.concatenate([(ks[:, None] * f[None, :] - 1).reshape(-1),
+                         (ks[:, None] * f[None, :]).reshape(-1),
+                         (f << 20) - 1, np.zeros(1, np.int64)])
+    fs = np.concatenate([np.tile(f, 2 * len(ks)), f, [1]])
+    rng = np.random.default_rng(11)
+    fr = rng.integers(1, 4097, 10 ** 6)
+    xr = (rng.random(10 ** 6) * (fr << 20)).astype(np.int64)
+    xs, fs = np.concatenate([xs, xr]), np.concatenate([fs, fr])
+    assert (xs < fs << 20).all() and (xs >= 0).all()
+    q, r = rans_encode.divmod_recip(torch.from_numpy(xs).to(cuda),
+                                    torch.from_numpy(fs).to(cuda))
+    np.testing.assert_array_equal(q.cpu().numpy(), xs // fs)
+    np.testing.assert_array_equal(r.cpu().numpy(), xs % fs)
 
 
 @pytest.mark.parametrize("S,n_cells", [(1, 3), (777, 94), (100_003, 71_534),
@@ -124,9 +186,9 @@ def test_card_data_parallel_matches_cpu(cuda, tmp_path):
     payloads as the CPU's single-device encoder, and the same triplet
     from the data-parallel driver."""
     import scalce_tpu_torch
-    from scalce_tpu.config import Config
-    from scalce_tpu.io import fastq
-    from scalce_tpu.utils.synth import synth_fastq
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.io import fastq
+    from scalce_tpu_torch.utils.synth import synth_fastq
     from scalce_tpu_torch.parallel import mesh
     from scalce_tpu_torch.pipeline.encode import BlockEncoder
     src = os.path.join(tmp_path, "in.fastq")
@@ -155,8 +217,8 @@ def test_card_data_parallel_matches_cpu(cuda, tmp_path):
 
 def test_card_compress_matches_cpu(cuda, tmp_path):
     import scalce_tpu_torch
-    from scalce_tpu.config import Config
-    from scalce_tpu.utils.synth import synth_fastq
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.utils.synth import synth_fastq
     data = synth_fastq(2500, 100, seed=1, var_len=True, n_rate=0.01)
     src = os.path.join(tmp_path, "in.fastq")
     with open(src, "wb") as f:
@@ -187,8 +249,8 @@ def test_card_paired_matches_cpu(cuda, tmp_path, lossy_pct, data_parallel):
     single-device _1/_2 triplets, and the card's keep-order decompress
     gives the CPU's FASTQ pair."""
     import scalce_tpu_torch
-    from scalce_tpu.config import Config
-    from scalce_tpu.utils.synth import synth_pair
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.utils.synth import synth_pair
     mates = synth_pair(1300, 100, seed=6, var_len=True, n_rate=0.01)
     paths = tuple(os.path.join(tmp_path, f"m{m}.fastq") for m in (1, 2))
     for path, data in zip(paths, mates):

@@ -16,11 +16,12 @@ import torch
 import scalce_tpu
 import scalce_tpu_torch
 from scalce_tpu import container
-from scalce_tpu.config import Config
+from scalce_tpu.config import Config as RefConfig
 from scalce_tpu.io import fastq
 from scalce_tpu.models import lossy as ref_lossy
 from scalce_tpu.parallel import mesh as ref_mesh
 from scalce_tpu.utils.synth import synth_fastq, synth_pair
+from scalce_tpu_torch.config import Config
 from scalce_tpu_torch.models import lossy
 from scalce_tpu_torch.parallel import mesh
 
@@ -89,8 +90,8 @@ def compressed(inputs):
         tag = "p" if paired else "s"
         prefixes = {k: os.path.join(inputs["dir"], f"{k}_{tag}")
                     for k in ("ref", "port", "lossless")}
-        scalce_tpu.compress(Config(inputs=src, paired=paired,
-                                   output=prefixes["ref"], **SLICE))
+        scalce_tpu.compress(RefConfig(inputs=src, paired=paired,
+                                      output=prefixes["ref"], **SLICE))
         stats = scalce_tpu_torch.compress(Config(
             inputs=src, paired=paired, output=prefixes["port"], **SLICE),
             "cpu")

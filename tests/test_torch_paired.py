@@ -14,11 +14,12 @@ import torch
 
 import scalce_tpu
 import scalce_tpu_torch
-from scalce_tpu.config import Config
+from scalce_tpu.config import Config as RefConfig
 from scalce_tpu.io import fastq
 from scalce_tpu.models import lossy as ref_lossy
 from scalce_tpu.parallel import mesh as ref_mesh
 from scalce_tpu.utils.synth import synth_pair
+from scalce_tpu_torch.config import Config
 from scalce_tpu_torch.parallel import mesh
 from scalce_tpu_torch.pipeline.encode import BlockEncoder
 
@@ -46,7 +47,8 @@ def _triplets(prefix):
 def _decompress(pkg, src, out, **kw):
     """Decompress the paired triplet ``src`` (named by ``src``'s file)
     -> (mate 1 bytes, mate 2 bytes)."""
-    cfg = Config(mode="decompress", inputs=(src,), output=out, **kw)
+    cfg = (RefConfig if pkg is scalce_tpu else Config)(
+        mode="decompress", inputs=(src,), output=out, **kw)
     if pkg is scalce_tpu:
         scalce_tpu.decompress(cfg)
     else:
@@ -65,8 +67,8 @@ def pair(request, tmp_path_factory):
         with open(p, "wb") as f:
             f.write(data)
     ref, port = os.path.join(d, "ref"), os.path.join(d, "port")
-    scalce_tpu.compress(Config(inputs=paths, paired=True, output=ref,
-                               **SLICE))
+    scalce_tpu.compress(RefConfig(inputs=paths, paired=True, output=ref,
+                                  **SLICE))
     stats = scalce_tpu_torch.compress(Config(inputs=paths, paired=True,
                                              output=port, **SLICE), "cpu")
     assert stats.n_reads == 2 * 2560 and stats.n_blocks == 3
@@ -112,8 +114,10 @@ def test_sharded_encoder_pairs_match_reference_and_single_device(pair):
     assert len(pairs) == 5
     senc = mesh.ShardedEncoder(cfg, "cpu", mesh=mesh.local_mesh(2, "cpu"),
                                group=2)
-    ref = ref_mesh.ShardedEncoder(cfg, ref_lossy.identity_map(),
-                                  mesh=ref_mesh.local_mesh(2), group=2)
+    ref = ref_mesh.ShardedEncoder(
+        RefConfig(inputs=pair["paths"], paired=True,
+                  **{**SLICE, "block_reads": 512}),
+        ref_lossy.identity_map(), mesh=ref_mesh.local_mesh(2), group=2)
     assert senc.D == ref.D == 4
     got = senc.encode_block_pairs(pairs[:4]) + senc.encode_block_pairs(
         pairs[4:])

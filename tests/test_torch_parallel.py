@@ -13,12 +13,13 @@ import torch
 
 import scalce_tpu
 import scalce_tpu_torch
-from scalce_tpu.config import Config
+from scalce_tpu.config import Config as RefConfig
 from scalce_tpu.io import fastq
 from scalce_tpu.models import lossy
 from scalce_tpu.parallel import mesh as ref_mesh
 from scalce_tpu.streams import qualities as ref_q
 from scalce_tpu.utils.synth import synth_fastq
+from scalce_tpu_torch.config import Config
 from scalce_tpu_torch.parallel import mesh
 from scalce_tpu_torch.pipeline.encode import BlockEncoder
 from scalce_tpu_torch.streams import qualities
@@ -44,7 +45,8 @@ def fastq_file(tmp_path_factory):
     cfg = Config(inputs=(src,), **SLICE)
     blocks = list(fastq.iter_blocks(src, cfg.block_reads, cfg.max_read_len))
     assert len(blocks) == 5 and blocks[-1].n_reads < cfg.block_reads
-    return {"dir": d, "src": src, "cfg": cfg, "blocks": blocks}
+    return {"dir": d, "src": src, "cfg": cfg,
+            "ref_cfg": RefConfig(inputs=(src,), **SLICE), "blocks": blocks}
 
 
 def _triplet(prefix):
@@ -60,7 +62,7 @@ def test_sharded_encoder_matches_reference_and_single_device(fastq_file):
     cfg, blocks = fastq_file["cfg"], fastq_file["blocks"]
     senc = mesh.ShardedEncoder(cfg, "cpu", mesh=mesh.local_mesh(2, "cpu"),
                                group=2)
-    ref = ref_mesh.ShardedEncoder(cfg, lossy.identity_map(),
+    ref = ref_mesh.ShardedEncoder(fastq_file["ref_cfg"], lossy.identity_map(),
                                   mesh=ref_mesh.local_mesh(2), group=2)
     assert senc.D == ref.D == 4
     got = senc.encode_blocks(blocks[:4]) + senc.encode_blocks(blocks[4:])
@@ -82,8 +84,9 @@ def test_data_parallel_driver_matches_reference(fastq_file, monkeypatch):
     for name, pkg, dp in (("ref_dp", scalce_tpu, True),
                           ("ref_one", scalce_tpu, False),
                           ("port_dp", scalce_tpu_torch, True)):
-        cfg = Config(inputs=(src,), output=os.path.join(d, name),
-                     data_parallel=dp, **SLICE)
+        cfg = (RefConfig if pkg is scalce_tpu else Config)(
+            inputs=(src,), output=os.path.join(d, name), data_parallel=dp,
+            **SLICE)
         if pkg is scalce_tpu:
             pkg.compress(cfg)
         else:

@@ -107,7 +107,7 @@ def test_encode_scan_matches_pallas_and_xla(order, monkeypatch):
     packed_k, wc_k = ref_rans.compact_emissions(w_k, e_k)
 
     s, c, f, cm = _torch(sym, ctx, freq, cum)
-    states, words, emits = rans_encode.encode_scan(s, c, f, cm, T)
+    states, words, emits = rans_encode.encode_scan(s, c, f, cm, T, order)
     packed, wc = rans.compact_emissions(words, emits)
     np.testing.assert_array_equal(words.numpy(), np.asarray(w_k))
     np.testing.assert_array_equal(emits.numpy(), np.asarray(e_k))
@@ -165,7 +165,7 @@ def test_seqs_payload_parse_match_reference(native, tmp_path, monkeypatch):
     real block's delta products, with the native library and on the
     numpy fallbacks."""
     import os
-    from scalce_tpu.config import Config
+    from scalce_tpu_torch.config import Config
     from scalce_tpu.io import fastq
     from scalce_tpu.utils.synth import synth_fastq
     from scalce_tpu_torch.pipeline import encode
@@ -212,3 +212,47 @@ def test_entropy_host_half_matches_reference():
     assert blob == ref_entropy.table_payload(f)
     np.testing.assert_array_equal(entropy.payload_to_freq(blob, 257, 256),
                                   f)
+
+
+def test_kernel_tables_match_cumulative_frequencies():
+    """K3's and K4's staged tables (``rans.bucket_slabs`` layout): u16
+    rows of exclusive cumulative frequencies ending in the total."""
+    rng = np.random.default_rng(12)
+    C, S, R = qualities.n_contexts(1), 94, 95
+    counts = rng.integers(0, 500, (C, S)) * (rng.random((C, S)) < 0.3)
+    counts[0] = 0
+    counts[1, :] = 0
+    counts[1, 93] = 5                         # all mass on the last symbol
+    freq, cum = entropy.device_normalize(
+        torch.from_numpy(counts.reshape(-1)), C, S)
+    rows = rans.cum_rows(freq).numpy()
+
+    def unslab(slabs, E):
+        bucket = slabs[E:].reshape(-1, E, R).transpose(0, 2, 1)
+        return np.concatenate([slabs[None, :E], bucket.reshape(-1, E)])
+    tab = unslab(rans_encode.staged_table(freq, cum, 1).numpy(), 96)
+    np.testing.assert_array_equal(tab[:, :S + 1], rows)
+    assert (tab[:, S + 1] == 0).all() and (tab[:, S] == 4096).all()
+    cum16 = rans_decode.staged_table(freq[None], 1)[0].numpy()
+    np.testing.assert_array_equal(unslab(cum16, 96), tab)
+
+
+def test_reciprocal_divide_formula_is_exact():
+    """K3's multiply-high by ceil(2^44 / f) << 20, in numpy uint64: exact
+    for every f in 1..4096 at x = k*f - 1, k*f, (f << 20) - 1 and random
+    x below f << 20 (f = 1 is the kernel's special case)."""
+    f = np.arange(2, 4097, dtype=np.uint64)
+    M = (((np.uint64(1) << np.uint64(44)) + f - np.uint64(1)) // f) \
+        << np.uint64(20)
+    ks = np.array([1, 2, 3, 255, 4097, 65537, (1 << 20) - 1], np.uint64)
+    rng = np.random.default_rng(13)
+    xs = np.concatenate([ks[:, None] * f[None, :] - np.uint64(1),
+                         ks[:, None] * f[None, :],
+                         ((f << np.uint64(20)) - np.uint64(1))[None, :],
+                         (rng.random((40, f.size)) * (f << np.uint64(20))
+                          .astype(np.float64)).astype(np.uint64)])
+    assert (xs < f << np.uint64(20)).all()
+    mhi, mlo = M >> np.uint64(32), M & np.uint64(0xFFFFFFFF)
+    hi = xs * mhi + ((xs * mlo) >> np.uint64(32))
+    np.testing.assert_array_equal(hi >> np.uint64(32), xs // f)
+

@@ -15,9 +15,10 @@ import torch
 
 import scalce_tpu
 import scalce_tpu_torch
-from scalce_tpu.config import Config
+from scalce_tpu.config import Config as RefConfig
 from scalce_tpu.utils.synth import synth_fastq, synth_pair
 from scalce_tpu_torch import convert
+from scalce_tpu_torch.config import Config
 from scalce_tpu_torch.pipeline.encode import BlockEncoder
 
 # xdist runs test files side by side on the CPU: one intra-op thread
@@ -40,8 +41,8 @@ def _triplet(prefix):
 
 
 def _decompress(pkg, src, out, **kw):
-    cfg = Config(mode="decompress", inputs=(src + ".00.scalcen",),
-                 output=out, **kw)
+    cfg = (RefConfig if pkg is scalce_tpu else Config)(
+        mode="decompress", inputs=(src + ".00.scalcen",), output=out, **kw)
     if pkg is scalce_tpu:
         scalce_tpu.decompress(cfg)
     else:
@@ -71,7 +72,7 @@ def files(request, tmp_path_factory):
         f.write(data)
     ref, port = os.path.join(d, "ref"), os.path.join(d, "port")
     kw = {**SLICE, **change}
-    scalce_tpu.compress(Config(inputs=(src,), output=ref, **kw))
+    scalce_tpu.compress(RefConfig(inputs=(src,), output=ref, **kw))
     scalce_tpu_torch.compress(Config(inputs=(src,), output=port, **kw),
                               "cpu")
     return {"dir": d, "data": data, "ref": ref, "port": port}
