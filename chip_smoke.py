@@ -7,17 +7,22 @@ Phases (the first failure exits non-zero; no phase is caught):
   1. card: name and power limit; no CUDA device -> exit 1
   2. build: the CUDA kernels (csrc/*.cu, nvcc, sm_90a)
   3. kernels: K1-K4 against their plain torch versions on one real
-     262144-read block (B = 262144, L = 128, T = 2048, N = 16384; K4
-     decode_quals in the decompress path's groups of D = 4 and 1 at order
-     1; K2, K3 and K4 (decode_quals and decode_scan) also at orders 2 and
-     3), and K5/K6 at the shapes of a data-parallel group of the file's
-     first 4 blocks (K6: 134,217,728 indices into 286,136 cells; K5:
-     T = 2048, N = 65536) and of its first block alone, exact equality;
-     per kernel, timed with CUDA events: the wrapper, the launch alone
-     (each kernel's ``prepare``), the plain version, and the one PyTorch
-     call that computes the same function where there is one (K2, K6:
-     ``torch.bincount``); and its bound from this run's bytes and
-     operations, which the launch alone must not beat
+     262144-read block (B = 262144, L = 128, T = 2048, N = 16384): K1
+     from the block's codes, exception mask and lengths; K2 (pass A)
+     from its sorted quality bytes at orders 1, 2 and 3, each lossless
+     and through the -p 30 map that models/lossy.py builds from the
+     block, with and without the histogram (timed at order 1: lossless,
+     through the map, grids only); K3 and K4 decode_quals in the
+     decompress path's groups of D = 4 and 1 at order 1 (K3 and K4, with
+     decode_scan, also at orders 2 and 3); and K5/K6 at the shapes of a
+     data-parallel group of the file's first 4 blocks (K6: 134,217,728
+     indices into 286,136 cells; K5: T = 2048, N = 65536) and of its
+     first block alone; exact equality; per kernel, timed with CUDA
+     events: the wrapper, the launch alone (each kernel's ``prepare``),
+     the plain version, and the one PyTorch call that computes the same
+     function where there is one (K6: ``torch.bincount``); and its bound
+     from this run's bytes and operations, which the launch alone must
+     not beat
   4. main path: compress a 1,148,576-read synthetic FASTQ on the card
      (single-end, lossless, every stage on the device, order 1, gz),
      decompress it in keep-order, require the input bytes back and K1-K4
@@ -28,28 +33,29 @@ Phases (the first failure exits non-zero; no phase is caught):
   6. data-parallel path on the main file: ShardedEncoder over every card
      in groups of 4 blocks (4 per card on one card: one group and a
      tail) must give the single-device encoder's payloads, and the
-     --data-parallel driver (one block per card) phase 4's triplet; K5
-     and K6 must have run in each, counted apart
+     --data-parallel driver (one block per card) phase 4's triplet; K1,
+     K2 (grids only), K5 and K6 must have run in each, counted apart
   7. paired-end: a 2 x 1,148,576-read pair compressed on the card (-r)
      and decompressed in keep-order must give both files back, with K1-K4
-     launched; the --data-parallel pair (K5 and K6 launched) must write
-     the same _1/_2 triplets
+     launched; the --data-parallel pair (K1, K2, K5 and K6 launched)
+     must write the same _1/_2 triplets
   8. lossy (-p 30) on the main file: keep-order decompress keeps names
      and sequences and gives every quality through the map that
      models/lossy.py builds from the sampled reads (within the 30%
      budget); the --data-parallel lossy triplet equals the single-device
-     one (K5 and K6 launched); the lossy histogram all-reduce over every
-     card equals the host's; a ragged lossy pair with N bases gives the
-     same triplets on the card and on the CPU
+     one (K1, K2, K5 and K6 launched); the lossy histogram all-reduce
+     over every card equals the host's; a ragged lossy pair with N
+     bases gives the same triplets on the card and on the CPU
 
 The line before the last is the card's name and power limit; the one
 before that is a JSON object with one entry per kernel (``launches``:
 phase 4's count for K1-K4, the phase-6 --data-parallel driver's for K5
 and K6, and their ``sharded_launches`` the ShardedEncoder's; phases 7
 and 8 check their own counts; ``ms`` the wrapper, ``kernel_ms`` the
-launch alone; K4's ``d1`` and K5's and K6's ``one_block`` the other
-shapes above); the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
-and nothing of scalce_tpu.
+launch alone; K2's ``lut`` and ``grids_only``, K4's ``d1`` and K5's
+and K6's ``one_block`` the other cases above); the last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
+of scalce_tpu.
 """
 
 from __future__ import annotations
@@ -142,11 +148,13 @@ def write_fastq(path: str, n_reads: int, **kw) -> bytes:
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12 / 2
 #: integer operations each kernel must do per element, counted from its
-#: source (K1: per k-mer position, both strands' mix32 ranks and the
-#: reverse complement; K2: per grid cell; K3 and K4: per cell of a read,
-#: the context, table entry and state update; K5: per (lane, step); K6:
-#: per index).  Padding cells are not counted: the bound stays a bound.
-OPS_PER_ELEMENT = {"K1": 40, "K2": 6, "K3": 20, "K4": 25, "K5": 15, "K6": 4}
+#: source (K1: per k-mer window inside a read, both strands' mix32 ranks
+#: and the reverse complement; K2: per cell of a read, the LUT, clamp,
+#: context and count; K3 and K4: per cell of a read, the context, table
+#: entry and state update; K5: per (lane, step); K6: per index).  Padding
+#: cells and windows past a read's end are not counted: the bound stays
+#: a bound.
+OPS_PER_ELEMENT = {"K1": 40, "K2": 10, "K3": 20, "K4": 25, "K5": 15, "K6": 4}
 
 
 def narrow_bytes(t: torch.Tensor) -> int:
@@ -216,7 +224,9 @@ class Case:
 
 
 def as_tuple(x):
-    return x if isinstance(x, tuple) else (x,)
+    """A kernel's outputs as a tuple, without the absent ones (None)."""
+    return tuple(t for t in (x if isinstance(x, tuple) else (x,))
+                 if t is not None)
 
 
 def check_kernels(blocks, dev, kernels) -> dict:
@@ -225,10 +235,10 @@ def check_kernels(blocks, dev, kernels) -> dict:
     groups of 4 blocks and of 1), K5 and K6 from a data-parallel group of
     ``blocks`` and from one block; K2-K4 also at orders 2 and 3."""
     from scalce_tpu_torch.config import Config
-    from scalce_tpu_torch.models import entropy
-    from scalce_tpu_torch.ops import (core_match, core_rank, hist,
-                                      histogram, rans, rans_decode,
-                                      rans_encode, rans_encode_flat)
+    from scalce_tpu_torch.models import entropy, lossy
+    from scalce_tpu_torch.ops import (core_rank, histogram, rans,
+                                      rans_decode, rans_encode,
+                                      rans_encode_flat)
     from scalce_tpu_torch.ops.bitops import unpack_bases_u32
     from scalce_tpu_torch.parallel import mesh
     from scalce_tpu_torch.pipeline import encode
@@ -244,35 +254,42 @@ def check_kernels(blocks, dev, kernels) -> dict:
     codes = unpack_bases_u32(pre["seq"])
     exc = torch.zeros(B * L, dtype=torch.bool, device=dev)
     exc[pre["exc"]] = True
-    kmers = core_match.rolling_kmers(codes, k)
-    invalid = core_match.window_invalid(exc.reshape(B, L), pre["len"], k)
-    args = (kmers, invalid, k, seed)
-    cases.append(Case("K1", core_rank.rank_argmin, core_rank.rank_argmin_plain,
-                      args, core_rank.prepare, 20, 5, (kmers, invalid),
-                      kmers.numel()))
+    exc = exc.reshape(B, L)
+    lengths = pre["len"].to(torch.int64)
+    windows = int((lengths - k + 1).clamp(min=0).sum())
+    cases.append(Case("K1", core_rank.core_rank_codes,
+                      core_rank.core_rank_codes_plain,
+                      (codes, exc, lengths, k, seed), core_rank.prepare, 20, 5,
+                      (codes, exc, lengths), windows))
 
     _, _, qual_s, len_s, *_ = encode._device_stage_a(
         pre["seq"], pre["qual"], pre["len"], block.n_reads, pre["exc"], k,
         seed)
     n_valid = int(len_s.sum())
     T = qualities.pick_T(B, L, cfg.qual_T_target)
+    # the -p 30 map that models/lossy.py builds from this block's reads
+    qmap = encode.device_qual_map(lossy.build_quant_map(
+        lossy.sample_histogram(block.qual, block.lengths, block.n_reads),
+        LOSSY_PCT), dev)
     grids, tables = {}, {}
     for order in (1, 2, 3):
-        sym, ctx = qualities.sym_ctx_grids(qual_s, len_s, order)
-        R, PB, cd = qualities._slab_spec(order)
-        counts = hist.hist_ctx(sym, ctx, R, PB, cd, qualities.N_SYMS)
-        max_abs_err((counts,), (hist.hist_ctx_plain(sym, ctx, R, PB),))
+        for m in (None, qmap):
+            for h in (True, False):
+                a = (qual_s, len_s, order, m, h)
+                max_abs_err(as_tuple(qualities.sym_ctx_hist(*a)),
+                            as_tuple(qualities.sym_ctx_hist_plain(*a)))
+        sym, ctx, counts = qualities.sym_ctx_hist(qual_s, len_s, order)
         grids[order] = (sym, ctx, counts)
         tables[order] = entropy.device_normalize(
             counts, qualities.n_contexts(order), qualities.N_SYMS)
     sym, ctx, counts = grids[1]
-    R, PB, cd = qualities._slab_spec(1)
-    flat = torch.where(ctx == 0, 0, ctx * qualities.N_SYMS + sym).reshape(-1)
-    n_cells = qualities.n_contexts(1) * qualities.N_SYMS
-    cases.append(Case(
-        "K2", hist.hist_ctx, lambda *a: hist.hist_ctx_plain(*a[:4], a[5]),
-        (sym, ctx, R, PB, cd, qualities.N_SYMS), hist.prepare, 20, 5,
-        (sym, ctx), sym.numel(), library=lambda: torch.bincount(flat, minlength=n_cells)))
+    for tag, m, h in (("", None, True), (" lut", qmap, True),
+                      (" grids", None, False)):
+        bound_in = (qual_s, len_s) + (() if m is None else (m,))
+        cases.append(Case(
+            "K2" + tag, qualities.sym_ctx_hist, qualities.sym_ctx_hist_plain,
+            (qual_s, len_s, 1, m, h), qualities.prepare_pass_a, 20, 5,
+            bound_in, n_valid))
 
     freq, cum = tables[1]
     cases.append(Case(
@@ -425,8 +442,8 @@ def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
                                                                  "main")):
         raise AssertionError("--data-parallel triplet != phase 4's")
     for run, launches in (("ShardedEncoder", sharded), ("driver", driver)):
-        if not (launches["K1"] and launches["K5"] and launches["K6"]):
-            raise AssertionError(f"K1, K5 or K6 never ran in the "
+        if not all(launches[n] for n in ("K1", "K2", "K5", "K6")):
+            raise AssertionError(f"K1, K2, K5 or K6 never ran in the "
                                  f"data-parallel {run} run: {launches}")
     mb = os.path.getsize(src) / 1e6
     say(f"data-parallel on {[str(d) for d in senc.mesh]}: the payloads of "
@@ -490,12 +507,12 @@ def check_paired(tmp: str, kernels: dict, smi: str) -> None:
                                      data_parallel=True, **cfg), "cuda")
     torch.cuda.synchronize()
     t_dp = time.monotonic() - t0
-    dp = counts(kernels, ("K1", "K5", "K6"))
+    dp = counts(kernels, ("K1", "K2", "K5", "K6"))
     if triplet(os.path.join(tmp, "pair_dp")) != trip:
         raise AssertionError("paired --data-parallel triplets != "
                              "single-device ones")
     if not all(dp.values()):
-        raise AssertionError(f"K1, K5 or K6 never ran on the paired "
+        raise AssertionError(f"K1, K2, K5 or K6 never ran on the paired "
                              f"data-parallel path: {dp}")
     say(f"paired --data-parallel: _1/_2 triplets equal the single-device "
         f"ones; launches {dp}")
@@ -516,7 +533,6 @@ def check_lossy(src: str, data: bytes, lossless_bytes: int, tmp: str,
     from scalce_tpu_torch.utils.synth import synth_pair
     from scalce_tpu_torch.models import lossy
     from scalce_tpu_torch.parallel import mesh
-    from scalce_tpu_torch.pipeline import encode
     cfg = dict(lossy_pct=LOSSY_PCT, **SLICE)
 
     reset(kernels)
@@ -567,15 +583,6 @@ def check_lossy(src: str, data: bytes, lossless_bytes: int, tmp: str,
         f"sequences exact, qualities through the sampled map; launches "
         f"{launches}")
 
-    # the lossy gather of one block's quality grid on the card
-    qmap = encode.device_qual_map(lut, "cuda")
-    grid = torch.from_numpy(blocks[0].qual).to("cuda")
-    if not torch.equal(encode.remap_qualities(grid, qmap).cpu(),
-                       torch.from_numpy(lut[blocks[0].qual])):
-        raise AssertionError("remap_qualities != the LUT on the host")
-    gather_ms = time_ms(lambda: encode.remap_qualities(grid, qmap), 20)
-    del grid
-
     # the histogram all-reduce over every card (one K6 launch each)
     cards = mesh.local_mesh(device="cuda")
     group = blocks[:len(cards)]
@@ -591,13 +598,13 @@ def check_lossy(src: str, data: bytes, lossless_bytes: int, tmp: str,
     reset(kernels)
     t_dp = compress_file(src, os.path.join(tmp, "lossy_dp"), "cuda",
                          lossy_pct=LOSSY_PCT, data_parallel=True)
-    dp = counts(kernels, ("K1", "K5", "K6"))
+    dp = counts(kernels, ("K1", "K2", "K5", "K6"))
     if triplet(os.path.join(tmp, "lossy_dp")) != triplet(
             os.path.join(tmp, "lossy")):
         raise AssertionError("lossy --data-parallel triplet != "
                              "single-device one")
     if not all(dp.values()):
-        raise AssertionError(f"K1, K5 or K6 never ran on the lossy "
+        raise AssertionError(f"K1, K2, K5 or K6 never ran on the lossy "
                              f"data-parallel path: {dp}")
     say(f"lossy --data-parallel triplet equals the single-device one; "
         f"all-reduce over {len(cards)} card(s) equals the host histogram; "
@@ -627,8 +634,7 @@ def check_lossy(src: str, data: bytes, lossless_bytes: int, tmp: str,
         f"{walls['cpu']:.2f} s)")
     say(f"lossy compress {t_c:.3f} s = {mb / t_c:.2f} MB/s, decompress "
         f"{t_d:.3f} s = {mb / t_d:.2f} MB/s, --data-parallel compress "
-        f"{t_dp:.3f} s = {mb / t_dp:.2f} MB/s; lossy gather "
-        f"{gather_ms:.3f} ms per block | {smi}")
+        f"{t_dp:.3f} s = {mb / t_dp:.2f} MB/s | {smi}")
 
 
 def main() -> int:
@@ -636,11 +642,12 @@ def main() -> int:
     from scalce_tpu_torch.ops import (_cuda, core_rank, hist, histogram,
                                       rans_decode, rans_encode,
                                       rans_encode_flat)
+    from scalce_tpu_torch.streams import qualities
     kind = torch.cuda.get_device_name(0)
     say(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
     #: name -> (module with SOURCE / REPLACES, wrapper with .launches)
-    kernels = {"K1": (core_rank, core_rank.rank_argmin),
-               "K2": (hist, hist.hist_ctx),
+    kernels = {"K1": (core_rank, core_rank.core_rank_codes),
+               "K2": (hist, qualities.sym_ctx_hist),
                "K3": (rans_encode, rans_encode.encode_scan),
                "K4": (rans_decode, rans_decode.decode_quals),
                "K5": (rans_encode_flat, rans_encode_flat.encode_scan_flat),
@@ -707,10 +714,13 @@ def main() -> int:
         check_paired(tmp, kernels, smi)                         # phase 7
         check_lossy(src, data, comp, tmp, kernels, smi)         # phase 8
 
-    # K4 also at the main path's remainder group (D = 1); K5 and K6 also
-    # at one block's shapes (the one-card --data-parallel driver's)
-    other = {"K4": ("K4 D=1", "d1"), "K5": ("K5 1 block", "one_block"),
-             "K6": ("K6 1 block", "one_block")}
+    # K2 also through the lossy LUT and grids-only (the data-parallel
+    # path's); K4 also at the main path's remainder group (D = 1); K5 and
+    # K6 also at one block's shapes (the one-card --data-parallel
+    # driver's)
+    other = {"K2": (("K2 lut", "lut"), ("K2 grids", "grids_only")),
+             "K4": (("K4 D=1", "d1"),), "K5": (("K5 1 block", "one_block"),),
+             "K6": (("K6 1 block", "one_block"),)}
     print(json.dumps({"kernels": [
         {"name": f"{name} {fn.__name__}", "route": "cuda",
          "source": mod.SOURCE, "replaces": mod.REPLACES,
@@ -718,8 +728,7 @@ def main() -> int:
          **({"sharded_launches": sharded[name]}
             if name in ("K5", "K6") else {}),
          **measured[name],
-         **({other[name][1]: measured[other[name][0]]}
-            if name in other else {})}
+         **{key: measured[case] for case, key in other.get(name, ())}}
         for name, (mod, fn) in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,12 +19,11 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x, uint32_t seed) {
   return x;
 }
 
-// Reverse the 16 2-bit lanes of a word (bitops.rev_lanes_u32).
+// Reverse the 16 2-bit lanes of a word (bitops.rev_lanes_u32): a bit
+// reverse, then each lane's two bits swapped back.
 __device__ __forceinline__ uint32_t rev_lanes(uint32_t v) {
-  v = ((v & 0x33333333u) << 2) | ((v >> 2) & 0x33333333u);
-  v = ((v & 0x0F0F0F0Fu) << 4) | ((v >> 4) & 0x0F0F0F0Fu);
-  v = ((v & 0x00FF00FFu) << 8) | ((v >> 8) & 0x00FF00FFu);
-  return (v << 16) | (v >> 16);
+  const uint32_t b = __brev(v);
+  return ((b >> 1) & 0x55555555u) | ((b & 0x55555555u) << 1);
 }
 
 // Reverse complement of a 2-bit big-endian k-mer (core_match.revcomp_kmer).

@@ -4,9 +4,10 @@
 A quality value v (Phred, byte - 33) may be replaced by its bin's
 representative r only if ``|r - v| <= pct/100 * v``; the representative
 is the bin's most frequent value in the sampled histogram (ties -> the
-lowest value).  The map is a 256-entry byte LUT; the encoder gathers the
-permuted quality grid through it on the device in front of the quality
-grids (``pipeline/encode.py::remap_qualities``).  Sequences and names are
+lowest value).  The map is a 256-entry byte LUT; the encoder's quality
+pass A reads the permuted quality grid through it on the device
+(``streams/qualities.py::sym_ctx_hist``: kernel K2 on the card,
+``remap_qualities`` in the plain version).  Sequences and names are
 untouched.
 """
 

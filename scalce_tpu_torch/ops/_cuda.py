@@ -40,8 +40,8 @@ _U = ctypes.c_uint32
 _L = ctypes.c_longlong
 #: C entry points -> argument types (the stream is always last)
 _SIGNATURES = {
-    "scalce_core_rank": [_P, _P, _I, _I, _I, _U] + [_P] * 6 + [_P],
-    "scalce_hist_ctx": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "scalce_core_rank": [_P, _P, _P, _I, _I, _I, _U, _P, _P],
+    "scalce_hist_ctx": [_P, _P, _P] + [_I] * 5 + [_P] * 4,
     "scalce_rans_encode": [_P, _P, _P] + [_I] * 6 + [_P] * 4,
     "scalce_divmod_recip": [_P, _P, _I, _P, _P, _P],
     "scalce_rans_decode": [_P] * 4 + [_I] * 7 + [_P, _P],

@@ -3,8 +3,9 @@
 
 Each read's core is the minimum-rank k-mer over both strands (rank =
 ``mix32``, the implicit hash dictionary); reads are then ordered by
-(core, bases from the core onward).  The per-row reductions are kernel
-K1 (``ops/core_rank.py``); everything around it is plain torch.  Only
+(core, bases from the core onward).  The ranks come from kernel K1
+(``ops/core_rank.py``), which builds the k-mers and the window mask
+from the codes itself; everything around it is plain torch.  Only
 the gather form of the reverse complement is ported: the reference's
 uniform-length fast path gives identical values and existed because
 TPU gathers are slow.
@@ -17,37 +18,14 @@ from typing import Tuple
 import torch
 
 from scalce_tpu_torch.ops.bitops import MASK32, U32_MAX, pack_bases_u32
-from scalce_tpu_torch.ops.core_rank import rank_argmin, revcomp_kmer
+from scalce_tpu_torch.ops.core_rank import (core_rank_codes, revcomp_kmer,
+                                            rolling_kmers, window_invalid)
 
 #: Bucket key for reads with no valid core window (sorts after all cores).
 NO_CORE = U32_MAX
 
 __all__ = ["NO_CORE", "rolling_kmers", "window_invalid", "revcomp_kmer",
            "reverse_complement", "find_cores_canonical", "build_sort_keys"]
-
-
-def rolling_kmers(codes: torch.Tensor, k: int) -> torch.Tensor:
-    """uint8 ``[B, L]`` codes -> big-endian 2-bit k-mer at every start
-    position, u32 in int64 ``[B, L - k + 1]``."""
-    P = codes.shape[1] - k + 1
-    acc = torch.zeros((codes.shape[0], P), dtype=torch.int64,
-                      device=codes.device)
-    for i in range(k):
-        acc |= codes[:, i:i + P].to(torch.int64) << (2 * (k - 1 - i))
-    return acc
-
-
-def window_invalid(exc: torch.Tensor, lengths: torch.Tensor,
-                   k: int) -> torch.Tensor:
-    """Bool ``[B, P]``: the window at p runs past the read's end or
-    covers a non-ACGT exception."""
-    B, L = exc.shape
-    P = L - k + 1
-    csum = torch.zeros((B, L + 1), dtype=torch.int32, device=exc.device)
-    csum[:, 1:] = torch.cumsum(exc.to(torch.int32), dim=1)
-    any_exc = (csum[:, k:] - csum[:, :P]) > 0
-    pos = torch.arange(P, dtype=torch.int64, device=exc.device)[None, :]
-    return any_exc | (pos > (lengths.to(torch.int64)[:, None] - k))
 
 
 def _flip_index(lengths: torch.Tensor, L: int):
@@ -75,9 +53,7 @@ def find_cores_canonical(codes: torch.Tensor, lengths: torch.Tensor,
     lower-ranked core wins (a tie goes forward); ``NO_CORE`` marks reads
     without a valid window; the RC core position is in the RC frame,
     ``len - k - p_fwd``."""
-    kmers = rolling_kmers(codes, k)
-    invalid = window_invalid(exc, lengths, k)
-    bf, pf, br, pfw, kf, kr = rank_argmin(kmers, invalid, k, seed)
+    bf, pf, br, pfw, kf, kr = core_rank_codes(codes, exc, lengths, k, seed)
     lengths = lengths.to(torch.int64)
     use_rc = br < bf
     best = torch.where(use_rc, br, bf)

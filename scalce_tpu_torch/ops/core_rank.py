@@ -1,9 +1,14 @@
-"""K1: six per-row reductions over the core matcher's rank grid.
+"""K1: the canonical core rank of each read, from its bases.
 
-Port of ``scalce_tpu/ops/core_pallas.py::rank_argmin_pallas``; the CUDA
-kernel is ``csrc/core_rank.cu``.  Same signature as the Pallas function:
-``(kmers [B, P], invalid [B, P], k, seed) -> (bf, pf, br, pfw, kf, kr)``,
-u32 values in int64 tensors (``ops/bitops.py``).
+Port of ``scalce_tpu/ops/core_pallas.py::rank_argmin_pallas`` together
+with its producers, the rolling k-mer grid and the window mask
+(``core_match.rolling_kmers`` and ``window_invalid`` in the reference,
+which leaves them to fused XLA elementwise ops).  The CUDA kernel is
+``csrc/core_rank.cu``; :func:`core_rank_codes` takes the uint8 ``[B, L]``
+codes, the bool ``[B, L]`` exception mask and the lengths, and returns
+the Pallas function's six values ``(bf, pf, br, pfw, kf, kr)``, u32 in
+int64 tensors (``ops/bitops.py``).  :func:`rank_argmin_plain` keeps the
+Pallas function's contract on the k-mer grid.
 """
 
 from __future__ import annotations
@@ -11,11 +16,34 @@ from __future__ import annotations
 import torch
 
 from scalce_tpu_torch.ops import _cuda
-from scalce_tpu_torch.ops.bitops import (U32_MAX, from_u32_bits, mix32,
-                                         rev_lanes_u32, to_u32_bits)
+from scalce_tpu_torch.ops.bitops import U32_MAX, mix32, rev_lanes_u32
 
 SOURCE = "scalce_tpu_torch/csrc/core_rank.cu"
 REPLACES = "scalce_tpu/ops/core_pallas.py:130"
+
+
+def rolling_kmers(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """uint8 ``[B, L]`` codes -> big-endian 2-bit k-mer at every start
+    position, u32 in int64 ``[B, L - k + 1]``."""
+    P = codes.shape[1] - k + 1
+    acc = torch.zeros((codes.shape[0], P), dtype=torch.int64,
+                      device=codes.device)
+    for i in range(k):
+        acc |= codes[:, i:i + P].to(torch.int64) << (2 * (k - 1 - i))
+    return acc
+
+
+def window_invalid(exc: torch.Tensor, lengths: torch.Tensor,
+                   k: int) -> torch.Tensor:
+    """Bool ``[B, P]``: the window at p runs past the read's end or
+    covers a non-ACGT exception."""
+    B, L = exc.shape
+    P = L - k + 1
+    csum = torch.zeros((B, L + 1), dtype=torch.int32, device=exc.device)
+    csum[:, 1:] = torch.cumsum(exc.to(torch.int32), dim=1)
+    any_exc = (csum[:, k:] - csum[:, :P]) > 0
+    pos = torch.arange(P, dtype=torch.int64, device=exc.device)[None, :]
+    return any_exc | (pos > (lengths.to(torch.int64)[:, None] - k))
 
 
 def revcomp_kmer(kmers: torch.Tensor, k: int) -> torch.Tensor:
@@ -25,7 +53,10 @@ def revcomp_kmer(kmers: torch.Tensor, k: int) -> torch.Tensor:
 
 def rank_argmin_plain(kmers: torch.Tensor, invalid: torch.Tensor, k: int,
                       seed: int):
-    """Plain torch version of :func:`rank_argmin`."""
+    """Per row of the k-mer grid ``[B, P]`` (the Pallas function's
+    contract): (min forward rank, its first position, min
+    reverse-complement rank, its last forward position, forward k-mer at
+    pf, RC k-mer at pfw); invalid windows rank ``U32_MAX``."""
     P = kmers.shape[1]
     rkm = revcomp_kmer(kmers, k)
     rank_f = torch.where(invalid, U32_MAX, mix32(kmers, seed))
@@ -42,39 +73,49 @@ def rank_argmin_plain(kmers: torch.Tensor, invalid: torch.Tensor, k: int,
     return bf, pf, br, pfw, kf, kr
 
 
-def prepare(kmers: torch.Tensor, invalid: torch.Tensor, k: int, seed: int):
-    """The CUDA path of :func:`rank_argmin` up to the launch.  Returns
-    ``(launch, result)``: each ``launch()`` runs the kernel once;
-    ``result()`` gives :func:`rank_argmin`'s return value."""
-    B, P = kmers.shape
-    if P < 1:
-        raise ValueError("rank_argmin: no k-mer positions")
-    km = to_u32_bits(kmers)
-    bad = invalid.contiguous()
-    _cuda.require(km, "kmers", torch.int32, (B, P))
-    _cuda.require(bad, "invalid", torch.bool, (B, P), km.device)
-    outs = [torch.empty(B, dtype=torch.int32, device=km.device)
-            for _ in range(6)]
+def core_rank_codes_plain(codes: torch.Tensor, exc: torch.Tensor,
+                          lengths: torch.Tensor, k: int, seed: int):
+    """Plain torch version of :func:`core_rank_codes`."""
+    return rank_argmin_plain(rolling_kmers(codes, k),
+                             window_invalid(exc, lengths, k), k, seed)
+
+
+def prepare(codes: torch.Tensor, exc: torch.Tensor, lengths: torch.Tensor,
+            k: int, seed: int):
+    """The CUDA path of :func:`core_rank_codes` up to the launch.
+    Returns ``(launch, result)``: each ``launch()`` runs the kernel once;
+    ``result()`` gives :func:`core_rank_codes`'s return value."""
+    B, L = codes.shape
+    if not 1 <= k <= 16:
+        raise ValueError(f"core_rank_codes: k = {k} outside 1..16")
+    if L - k + 1 < 1:
+        raise ValueError("core_rank_codes: no k-mer positions")
+    ln = lengths.to(torch.int64)
+    _cuda.require(codes, "codes", torch.uint8, (B, L))
+    _cuda.require(exc, "exc", torch.bool, (B, L), codes.device)
+    _cuda.require(ln, "lengths", torch.int64, (B,), codes.device)
+    out = torch.empty((6, B), dtype=torch.int64, device=codes.device)
 
     def launch():
-        _cuda.launch("scalce_core_rank", km.device, km.data_ptr(),
-                     bad.data_ptr(), B, P, k, seed & 0xFFFFFFFF,
-                     *(o.data_ptr() for o in outs))
-    return launch, lambda: tuple(from_u32_bits(o) for o in outs)
+        _cuda.launch("scalce_core_rank", codes.device, codes.data_ptr(),
+                     exc.data_ptr(), ln.data_ptr(), B, L, k,
+                     seed & 0xFFFFFFFF, out.data_ptr())
+    return launch, lambda: tuple(out)
 
 
-def rank_argmin(kmers: torch.Tensor, invalid: torch.Tensor, k: int,
-                seed: int):
-    """Per row of the rank grid: (min forward rank, its first position,
-    min reverse-complement rank, its last forward position, forward
-    k-mer at pf, RC k-mer at pfw).  CPU tensors take the plain version;
-    CUDA tensors launch ``csrc/core_rank.cu``."""
-    if kmers.device.type == "cpu":
-        return rank_argmin_plain(kmers, invalid, k, seed)
-    launch, result = prepare(kmers, invalid, k, seed)
+def core_rank_codes(codes: torch.Tensor, exc: torch.Tensor,
+                    lengths: torch.Tensor, k: int, seed: int):
+    """Per read: (min forward rank, its first position, min
+    reverse-complement rank, its last forward position, forward k-mer at
+    pf, RC k-mer at pfw) over the k-mer windows of uint8 ``codes`` (0..3)
+    that lie inside the read and cover no ``exc`` cell.  CPU tensors take
+    the plain version; CUDA tensors launch ``csrc/core_rank.cu``."""
+    if codes.device.type == "cpu":
+        return core_rank_codes_plain(codes, exc, lengths, k, seed)
+    launch, result = prepare(codes, exc, lengths, k, seed)
     launch()
-    rank_argmin.launches += 1
+    core_rank_codes.launches += 1
     return result()
 
 
-rank_argmin.launches = 0
+core_rank_codes.launches = 0

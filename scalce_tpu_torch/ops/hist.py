@@ -1,7 +1,12 @@
-"""K2: the quality model's (context, symbol) histogram.
+"""K2: quality pass A — symbol and context grids and their (context,
+symbol) histogram, from the quality bytes.
 
-Port of ``scalce_tpu/ops/hist_pallas.py::hist_ctx_slab_pallas``; the
-CUDA kernel is ``csrc/hist_ctx.cu``.
+Port of ``scalce_tpu/ops/hist_pallas.py::hist_ctx_slab_pallas`` together
+with its producers (the reference's ``sym_ctx_hist`` grids and lossy
+remap); the CUDA kernel is ``csrc/hist_ctx.cu``.  The public function is
+``streams/qualities.py::sym_ctx_hist``, which owns the context model and
+the plain version; this module launches the kernel and keeps
+:func:`hist_ctx_plain`, the Pallas function's contract on the grids.
 """
 
 from __future__ import annotations
@@ -9,7 +14,6 @@ from __future__ import annotations
 import torch
 
 from scalce_tpu_torch.ops import _cuda
-from scalce_tpu_torch.ops.bitops import to_u32_bits
 
 SOURCE = "scalce_tpu_torch/csrc/hist_ctx.cu"
 REPLACES = "scalce_tpu/ops/hist_pallas.py:207"
@@ -17,45 +21,37 @@ REPLACES = "scalce_tpu/ops/hist_pallas.py:207"
 
 def hist_ctx_plain(sym: torch.Tensor, ctx: torch.Tensor, R: int, PB: int,
                    n_syms: int = 94) -> torch.Tensor:
-    """Plain torch version of :func:`hist_ctx`."""
+    """(ctx, sym) histogram of ``[B, L]`` grids (u32 in int64): i32
+    ``[(1 + PB*R) * n_syms]``; ctx = 0 marks padding, counted into cell
+    (0, 0)."""
     n_cells = (1 + PB * R) * n_syms
     idx = torch.where(ctx == 0, 0, ctx * n_syms + sym).reshape(-1)
     return torch.bincount(idx, minlength=n_cells).to(torch.int32)
 
 
-def hist_ctx(sym: torch.Tensor, ctx: torch.Tensor, R: int, PB: int,
-             col_div: int, n_syms: int = 94) -> torch.Tensor:
-    """(ctx, sym) histogram of ``[B, L]`` grids (u32 in int64): i32
-    ``[(1 + PB*R) * n_syms]``.  ctx = 0 marks padding, counted into cell
-    (0, 0); otherwise ctx = 1 + min(col // col_div, PB - 1)*R + prev_idx.
-    CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/hist_ctx.cu``."""
-    if sym.device.type == "cpu":
-        return hist_ctx_plain(sym, ctx, R, PB, n_syms)
-    launch, hist = prepare(sym, ctx, R, PB, col_div, n_syms)
-    launch()
-    hist_ctx.launches += 1
-    return hist
-
-
-def prepare(sym: torch.Tensor, ctx: torch.Tensor, R: int, PB: int,
-            col_div: int, n_syms: int = 94):
-    """The CUDA path of :func:`hist_ctx` up to the launch.  Returns
-    ``(launch, hist)``: each ``launch()`` zeroes ``hist`` and runs the
-    kernel once into it."""
-    B, L = sym.shape
-    s32, c32 = to_u32_bits(sym), to_u32_bits(ctx)
-    _cuda.require(s32, "sym", torch.int32, (B, L))
-    _cuda.require(c32, "ctx", torch.int32, (B, L), s32.device)
-    n_ctx = 1 + PB * R
-    hist = torch.empty(n_ctx * n_syms, dtype=torch.int32, device=s32.device)
+def prepare(qual: torch.Tensor, lengths: torch.Tensor, order: int, R: int,
+            PB: int, qual_map=None, histogram: bool = True):
+    """The CUDA path of pass A up to the launch, for context ``order``
+    with slab spec ``(R, PB)``.  Returns ``(launch, (sym, ctx, counts))``:
+    each ``launch()`` zeroes ``counts`` (None without ``histogram``) and
+    runs the kernel once into the three outputs."""
+    B, L = qual.shape
+    dev = qual.device
+    ln = lengths.to(torch.int64)
+    _cuda.require(qual, "qual", torch.uint8, (B, L))
+    _cuda.require(ln, "lengths", torch.int64, (B,), dev)
+    if qual_map is not None:
+        _cuda.require(qual_map, "qual_map", torch.uint8, (256,), dev)
+    sym = torch.empty((B, L), dtype=torch.int64, device=dev)
+    ctx = torch.empty((B, L), dtype=torch.int64, device=dev)
+    counts = (torch.empty((1 + PB * R) * 94, dtype=torch.int32, device=dev)
+              if histogram else None)
 
     def launch():
-        hist.zero_()
-        _cuda.launch("scalce_hist_ctx", s32.device, s32.data_ptr(),
-                     c32.data_ptr(), B, L, R, PB, col_div, n_syms, n_ctx,
-                     hist.data_ptr())
-    return launch, hist
-
-
-hist_ctx.launches = 0
+        if counts is not None:
+            counts.zero_()
+        _cuda.launch("scalce_hist_ctx", dev, qual.data_ptr(), ln.data_ptr(),
+                     None if qual_map is None else qual_map.data_ptr(), B, L,
+                     order, R, PB, sym.data_ptr(), ctx.data_ptr(),
+                     None if counts is None else counts.data_ptr())
+    return launch, (sym, ctx, counts)

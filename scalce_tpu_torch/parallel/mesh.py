@@ -69,8 +69,9 @@ def stage1(pre: Dict[str, torch.Tensor], n_reads: Sequence[int], k: int,
            seed: int, order: int, qual_map: Optional[torch.Tensor] = None,
            perms: Optional[Sequence[torch.Tensor]] = None):
     """One device's share of a group (the reference's
-    ``make_sharded_stage1`` on one device): stages A and B per block,
-    then ONE K6 launch over the stacked grids.  With ``perms`` (mate 1's
+    ``make_sharded_stage1`` on one device): stages A and B per block
+    (K2 writes each block's grids without counting them), then ONE K6
+    launch over the stacked grids.  With ``perms`` (mate 1's
     permutations) the blocks are mate 2's, each following its mate-1
     block's permutation (``make_sharded_stage_mate2``).  Returns
     per-block lists ``perm``, ``delta``, ``len_s``, then ``sym`` and

@@ -3,11 +3,11 @@ full-device placement).
 
 Per block: stage A (unpack the 2-bit upload, canonical cores, sort
 keys, one stable multi-key sort, permute), stage B (aligned-predecessor
-delta of the sorted sequences; the lossy quality map, if any; quality
-grids and histogram), then the host assembly of the ``n``/``r``/``q``
-payloads.  Paired-end: mate 2 computes its own cores but follows mate
-1's permutation.  Every payload byte is the reference's for the same
-block and Config.
+delta of the sorted sequences; the quality grids and histogram, through
+the lossy map if any, in one K2 launch), then the host assembly of the
+``n``/``r``/``q`` payloads.  Paired-end: mate 2 computes its own cores
+but follows mate 1's permutation.  Every payload byte is the
+reference's for the same block and Config.
 """
 
 from __future__ import annotations
@@ -65,17 +65,6 @@ def device_qual_map(qual_map, device) -> Optional[torch.Tensor]:
     if np.array_equal(qual_map, np.arange(256, dtype=np.uint8)):
         return None
     return torch.from_numpy(qual_map.copy()).to(device)
-
-
-def remap_qualities(qual: torch.Tensor, qual_map: Optional[torch.Tensor]
-                    ) -> torch.Tensor:
-    """A uint8 quality grid through the lossy map: one gather from the
-    256-entry LUT with int32 indices (an int64 index grid of a 262,144 x
-    128 block would be 268 MB).  None is the identity."""
-    if qual_map is None:
-        return qual
-    idx = qual.reshape(-1).to(torch.int32)
-    return qual_map.index_select(0, idx).reshape(qual.shape)
 
 
 def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -213,15 +202,17 @@ def _device_stage_a2(seq_packed, qual, lengths, exc_pos, perm, k: int,
 
 
 def _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s, rc_s, n_reads: int,
-                    order: int, qual_map: Optional[torch.Tensor] = None):
-    """Stage B: predecessor delta + the (lossy-remapped) quality
-    symbol/context grids (the caller counts them: K2 per block, or K6
-    per data-parallel group)."""
+                    order: int, qual_map: Optional[torch.Tensor] = None,
+                    histogram: bool = True):
+    """Stage B: predecessor delta, then quality pass A (one K2 launch:
+    the lossy map, the symbol/context grids and, with ``histogram``,
+    their counts; a data-parallel group counts its blocks with one K6
+    launch instead).  Returns ``(delta, sym, ctx, counts)``."""
     delta = _delta_seq(codes_s, len_s, ck_s, cp_s, n_reads)
     delta["rc_bits"] = _pack_bits(rc_s)
-    sym, ctx = qualities.sym_ctx_grids(remap_qualities(qual_s, qual_map),
-                                       len_s, order)
-    return delta, sym, ctx
+    sym, ctx, counts = qualities.sym_ctx_hist(qual_s, len_s, order,
+                                              qual_map, histogram)
+    return delta, sym, ctx, counts
 
 
 def _encode_core(seq_packed, qual, lengths, n_reads: int, exc_pos, k: int,
@@ -232,8 +223,9 @@ def _encode_core(seq_packed, qual, lengths, n_reads: int, exc_pos, k: int,
     data-parallel group takes over all its blocks at once."""
     perm, codes_s, qual_s, len_s, ck_s, cp_s, rc_s = _device_stage_a(
         seq_packed, qual, lengths, n_reads, exc_pos, k, seed)
-    delta, sym, ctx = _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s,
-                                      rc_s, n_reads, order, qual_map)
+    delta, sym, ctx, _ = _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s,
+                                         rc_s, n_reads, order, qual_map,
+                                         histogram=False)
     return perm, delta, len_s, sym, ctx
 
 
@@ -244,8 +236,9 @@ def _encode_core_mate2(seq_packed, qual, lengths, n_reads: int, exc_pos,
     ``perm`` (returned first, as mate 2's payloads store it)."""
     codes_s, qual_s, len_s, ck_s, cp_s, rc_s = _device_stage_a2(
         seq_packed, qual, lengths, exc_pos, perm, k, seed)
-    delta, sym, ctx = _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s,
-                                      rc_s, n_reads, order, qual_map)
+    delta, sym, ctx, _ = _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s,
+                                         rc_s, n_reads, order, qual_map,
+                                         histogram=False)
     return perm, delta, len_s, sym, ctx
 
 
@@ -305,11 +298,9 @@ class BlockEncoder:
                 pre["seq"], pre["qual"], pre["len"], block.n_reads,
                 pre["exc"], cfg.core_k, cfg.dict_seed)
         with stage("stage B"):
-            delta, sym, ctx = _device_stage_b(
+            delta, sym, ctx, counts = _device_stage_b(
                 codes_s, qual_s, len_s, ck_s, cp_s, rc_s, block.n_reads,
                 cfg.qual_context_order, self.qual_map)
-            counts = qualities.slab_histogram(sym, ctx,
-                                              cfg.qual_context_order)
         return perm, delta, len_s, sym, ctx, counts
 
     def encode_device_pair(self, b1: ReadBlock, b2: ReadBlock):
@@ -327,11 +318,8 @@ class BlockEncoder:
                                   pre2["exc"], perm, cfg.core_k,
                                   cfg.dict_seed)
         with stage("stage B (mate 2)"):
-            delta, sym, ctx = _device_stage_b(*a2, b2.n_reads,
-                                              cfg.qual_context_order,
-                                              self.qual_map)
-            counts = qualities.slab_histogram(sym, ctx,
-                                              cfg.qual_context_order)
+            delta, sym, ctx, counts = _device_stage_b(
+                *a2, b2.n_reads, cfg.qual_context_order, self.qual_map)
         return out1, (perm, delta, a2[2], sym, ctx, counts)
 
     def assemble_pair(self, b1: ReadBlock, b2: ReadBlock, devout

@@ -2,7 +2,8 @@
 ``scalce_tpu/streams/qualities.py``, device placement).
 
 Pass A (:func:`sym_ctx_hist`) builds the symbol and context grids and
-their histogram (kernel K2); the tables are normalized on the device;
+their histogram from the quality bytes, through the lossy map if any
+(kernel K2, one launch); the tables are normalized on the device;
 pass B (:func:`encode_from_grids`) rANS-encodes the grids (kernel K3)
 and compacts the emitted words; :func:`decode_batch` decodes D blocks'
 quality grids in one launch (kernel K4).  A data-parallel group of D
@@ -27,7 +28,7 @@ lanes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +99,16 @@ def _slab_spec(order: int) -> Tuple[int, int, int]:
     return (_PREV1_FULL + 1, _POS_BUCKETS, 16)
 
 
+def remap_qualities(qual: torch.Tensor, qual_map: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
+    """A uint8 quality grid through the lossy map (uint8 ``[256]``): one
+    gather from the LUT with int32 indices.  None is the identity."""
+    if qual_map is None:
+        return qual
+    idx = qual.reshape(-1).to(torch.int32)
+    return qual_map.index_select(0, idx).reshape(qual.shape)
+
+
 def sym_ctx_grids(qual: torch.Tensor, lengths: torch.Tensor, order: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symbol grid and context grid (u32 in int64 ``[B, L]``) of a
@@ -114,19 +125,44 @@ def sym_ctx_grids(qual: torch.Tensor, lengths: torch.Tensor, order: int
     return sym, ctx
 
 
-def slab_histogram(sym: torch.Tensor, ctx: torch.Tensor, order: int
-                   ) -> torch.Tensor:
-    """(ctx, sym) histogram of one block's grids (i32, kernel K2)."""
-    R, PB, cd = _slab_spec(order)
-    return hist.hist_ctx(sym, ctx, R, PB, cd, N_SYMS)
+def sym_ctx_hist_plain(qual: torch.Tensor, lengths: torch.Tensor,
+                       order: int, qual_map: Optional[torch.Tensor] = None,
+                       histogram: bool = True):
+    """Plain torch version of :func:`sym_ctx_hist`."""
+    sym, ctx = sym_ctx_grids(remap_qualities(qual, qual_map), lengths,
+                             order)
+    R, PB, _ = _slab_spec(order)
+    return sym, ctx, (hist.hist_ctx_plain(sym, ctx, R, PB, N_SYMS)
+                      if histogram else None)
 
 
-def sym_ctx_hist(qual: torch.Tensor, lengths: torch.Tensor, order: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Pass A: symbol grid, context grid (u32 in int64 ``[B, L]``) and
-    their (ctx, sym) histogram (i32, kernel K2)."""
-    sym, ctx = sym_ctx_grids(qual, lengths, order)
-    return sym, ctx, slab_histogram(sym, ctx, order)
+def sym_ctx_hist(qual: torch.Tensor, lengths: torch.Tensor, order: int,
+                 qual_map: Optional[torch.Tensor] = None,
+                 histogram: bool = True):
+    """Pass A of a block's uint8 ``[B, L]`` qualities, through the lossy
+    map ``qual_map`` (uint8 ``[256]``; None: lossless): symbol grid and
+    context grid (u32 in int64 ``[B, L]``) and, with ``histogram``, their
+    (ctx, sym) histogram (i32 ``[n_contexts(order) * 94]``; else None).
+    CPU tensors take the plain version; CUDA tensors launch kernel K2
+    (``csrc/hist_ctx.cu``) once."""
+    if qual.device.type == "cpu":
+        return sym_ctx_hist_plain(qual, lengths, order, qual_map, histogram)
+    launch, out = prepare_pass_a(qual, lengths, order, qual_map, histogram)
+    launch()
+    sym_ctx_hist.launches += 1
+    return out
+
+
+sym_ctx_hist.launches = 0
+
+
+def prepare_pass_a(qual: torch.Tensor, lengths: torch.Tensor, order: int,
+                   qual_map: Optional[torch.Tensor] = None,
+                   histogram: bool = True):
+    """:func:`sym_ctx_hist`'s CUDA path up to the launch (``ops/hist.py``
+    ``prepare``): ``(launch, (sym, ctx, counts))``."""
+    R, PB, _ = _slab_spec(order)
+    return hist.prepare(qual, lengths, order, R, PB, qual_map, histogram)
 
 
 def stacked_ctx(ctx: torch.Tensor, order: int) -> torch.Tensor:

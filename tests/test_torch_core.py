@@ -27,7 +27,7 @@ def _t(a):
                             else a)
 
 
-def _block(seed, B, L, ragged):
+def _block(seed, B, L, ragged, k=K):
     """Reads sampled from a small genome (deep buckets), with exceptions,
     coreless rows (too short; all exceptions) and forced rank ties
     (homopolymers: every window ties; palindromes: the two strands tie)."""
@@ -35,9 +35,9 @@ def _block(seed, B, L, ragged):
     genome = rng.integers(0, 4, 4 * L, dtype=np.uint8)
     starts = rng.integers(0, 3 * L, B)
     codes = genome[starts[:, None] + np.arange(L)[None, :]]
-    lengths = (rng.integers(K - 2, L + 1, B) if ragged
+    lengths = (rng.integers(max(k - 2, 0), L + 1, B) if ragged
                else np.full(B, L - 3)).astype(np.int32)
-    lengths[0] = K - 1                        # too short: no core
+    lengths[0] = k - 1                        # too short: no core
     codes[1] = 2                              # homopolymer ties
     codes[2] = np.resize([0, 1, 2, 3], L)     # ACGT...: revcomp == self
     codes[np.arange(L)[None, :] >= lengths[:, None]] = 0
@@ -103,12 +103,44 @@ def test_rank_argmin_plain_matches_pallas_kernel(L):
                                     K)
     ref = [np.asarray(v) for v in core_pallas.rank_argmin_pallas(
         kmers, invalid, K, SEED, interpret=True)]
-    got = [v.numpy() for v in core_rank.rank_argmin(
+    got = [v.numpy() for v in core_rank.rank_argmin_plain(
         _t(np.asarray(kmers)), _t(np.asarray(invalid)), K, SEED)]
     has_core = ref[0] != 0xFFFFFFFF
     assert (~has_core).sum() >= 2 and has_core.sum() > 32
     for i, (g, r) in enumerate(zip(got, ref)):
         if L - K + 1 == 128 or i in (0, 1, 2, 4):
+            np.testing.assert_array_equal(g, r, err_msg=f"output {i}")
+        else:
+            np.testing.assert_array_equal(g[has_core], r[has_core],
+                                          err_msg=f"output {i}")
+
+
+@pytest.mark.parametrize("k,L", [(4, 101), (15, 101), (15, 142), (12, 17)])
+def test_core_rank_codes_matches_reference(k, L):
+    """K1's entry point on the codes (on the CPU its plain version)
+    against the reference's find_cores_canonical, and its six per-row
+    values against the Mosaic kernel in interpret mode over the
+    reference's k-mer grid: ragged reads, reads shorter than k, all-N
+    rows, rank ties.  At P = L-k+1 = 128 the six match on every row;
+    otherwise the kernel's padded lanes move pfw/kr of coreless rows
+    (masked downstream), so those rows compare on bf/br/pf/kf."""
+    codes, lengths, exc = _block(10 + k + L, 64, L, ragged=True, k=k)
+    jc, jl, je = jnp.asarray(codes), jnp.asarray(lengths), jnp.asarray(exc)
+    ref = ref_cm.find_cores_canonical(jc, jl, je, k, SEED)
+    got = core_match.find_cores_canonical(_t(codes), _t(lengths), _t(exc),
+                                          k, SEED)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r),
+                                      err_msg=f"output {i}")
+    pallas = [np.asarray(v) for v in core_pallas.rank_argmin_pallas(
+        ref_cm.rolling_kmers(jc, k), ref_cm.window_invalid(je, jl, k), k,
+        SEED, interpret=True)]
+    six = [v.numpy() for v in core_rank.core_rank_codes(
+        _t(codes), _t(exc), _t(lengths), k, SEED)]
+    has_core = pallas[0] != 0xFFFFFFFF
+    assert (~has_core).sum() >= 2 and has_core.sum() > 16
+    for i, (g, r) in enumerate(zip(six, pallas)):
+        if L - k + 1 == 128 or i in (0, 1, 2, 4):
             np.testing.assert_array_equal(g, r, err_msg=f"output {i}")
         else:
             np.testing.assert_array_equal(g[has_core], r[has_core],

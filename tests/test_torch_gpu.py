@@ -34,36 +34,80 @@ def _equal(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("B,P", [(1, 1), (37, 5), (1000, 117), (513, 200)])
-def test_core_rank_kernel(cuda, B, P):
-    rng = np.random.default_rng(B + P)
-    k = 12
-    kmers = torch.from_numpy(rng.integers(0, 1 << 24, (B, P))).to(cuda)
-    kmers[: B // 3, : P // 2] = 7                   # ties inside rows
-    invalid = torch.from_numpy(rng.random((B, P)) < 0.3).to(cuda)
-    invalid[: B // 5] = True                        # rows with no window
-    _equal(core_rank.rank_argmin(kmers, invalid, k, 0x5CA1CE),
-           core_rank.rank_argmin_plain(kmers, invalid, k, 0x5CA1CE))
+@pytest.mark.parametrize("B,L,k", [(1, 12, 12), (1, 128, 12), (37, 101, 12),
+                                   (1000, 128, 12), (513, 200, 15),
+                                   (300, 160, 4), (64, 17, 16),
+                                   (257, 131, 1)])
+def test_core_rank_kernel(cuda, B, L, k):
+    """K1 from the codes against its plain version: one read, rows not a
+    multiple of 4 or 16 bytes, rows longer than a warp's 128 bytes,
+    rank ties (homopolymers), empty and short reads, all-N reads."""
+    rng = np.random.default_rng(B + L + k)
+    codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    codes[: B // 3, : L // 2] = 2                  # ties inside rows
+    lengths = rng.integers(0, L + 1, B)
+    lengths[B // 2:: 7] = 0                        # empty reads
+    lengths[B // 2 + 1:: 7] = k - 1                # shorter than k
+    exc = rng.random((B, L)) < 0.02
+    exc[B // 5:: 11] = True                        # all-N reads
+    args = [torch.from_numpy(a).to(cuda) for a in (codes, exc, lengths)]
+    _equal(core_rank.core_rank_codes(*args, k, 0x5CA1CE),
+           core_rank.core_rank_codes_plain(*args, k, 0x5CA1CE))
 
 
-def _grids(cuda, order, B, L, seed, n_empty=3):
+def test_core_rank_kernel_rejects_bad_k(cuda):
+    codes = torch.zeros((4, 16), dtype=torch.uint8, device=cuda)
+    exc = torch.zeros((4, 16), dtype=torch.bool, device=cuda)
+    lengths = torch.full((4,), 16, device=cuda)
+    for k in (0, 17):
+        with pytest.raises(ValueError):
+            core_rank.core_rank_codes(codes, exc, lengths, k, 1)
+
+
+def _pass_a_inputs(cuda, B, L, seed, n_empty=3):
     """Ragged qualities whose first ``n_empty`` reads are empty."""
     rng = np.random.default_rng(seed)
     walk = np.clip(np.cumsum(rng.integers(-2, 3, (B, L)), axis=1) + 38,
                    2, 80) + 33
+    walk[:, :: 9] = rng.integers(0, 256, walk[:, :: 9].shape)  # any byte
     lengths = rng.integers(1, L + 1, B).astype(np.int32)
     lengths[:n_empty] = 0
-    qual = torch.from_numpy(walk.astype(np.uint8)).to(cuda)
-    lengths = torch.from_numpy(lengths).to(cuda)
+    return (torch.from_numpy(walk.astype(np.uint8)).to(cuda),
+            torch.from_numpy(lengths).to(cuda))
+
+
+def _lossy_map(cuda):
+    """A -p 30 map (models/lossy.py) from a walk histogram."""
+    from scalce_tpu_torch.models import lossy
+    hist = np.bincount(np.clip(np.arange(2, 81), 0, 93), minlength=94)
+    return torch.from_numpy(lossy.build_quant_map(hist * 7, 30)).to(cuda)
+
+
+def _grids(cuda, order, B, L, seed, n_empty=3):
+    qual, lengths = _pass_a_inputs(cuda, B, L, seed, n_empty)
     return qualities.sym_ctx_hist(qual, lengths, order), lengths
 
 
 @pytest.mark.parametrize("order", [1, 2, 3])
-@pytest.mark.parametrize("L", [64, 128, 160])
-def test_hist_kernel(cuda, order, L):
-    (sym, ctx, counts), _ = _grids(cuda, order, 300, L, order * L)
-    R, PB, _ = qualities._slab_spec(order)
-    assert torch.equal(counts, hist.hist_ctx_plain(sym, ctx, R, PB))
+@pytest.mark.parametrize("B,L", [(1, 128), (300, 101), (300, 128),
+                                 (300, 160), (257, 200)])
+@pytest.mark.parametrize("mode", ["hist", "lut", "grids"])
+def test_hist_kernel(cuda, order, B, L, mode):
+    """K2 (pass A from the quality bytes) against its plain version:
+    lossless or through a -p 30 LUT, with or without the histogram."""
+    qual, lengths = _pass_a_inputs(cuda, B, L, order * L + B)
+    qmap = _lossy_map(cuda) if mode == "lut" else None
+    histogram = mode != "grids"
+    got = qualities.sym_ctx_hist(qual, lengths, order, qmap, histogram)
+    want = qualities.sym_ctx_hist_plain(qual, lengths, order, qmap,
+                                        histogram)
+    _equal(got[:2], want[:2])
+    if histogram:
+        _equal(got[2:], want[2:])
+        R, PB, _ = qualities._slab_spec(order)
+        _equal(got[2:], (hist.hist_ctx_plain(got[0], got[1], R, PB),))
+    else:
+        assert got[2] is None and want[2] is None
 
 
 def _encode_blocks(cuda, order, D, B, L, T_target, seed, empty_lane=False):

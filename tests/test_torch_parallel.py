@@ -182,7 +182,7 @@ def test_group_histogram_and_encode_match_per_block(order):
     walk = np.clip(np.cumsum(rng.integers(-2, 3, (D, B, L)), axis=2) + 38,
                    2, 80) + 33
     lengths = rng.integers(0, L + 1, (D, B)).astype(np.int32)
-    grids = [qualities.sym_ctx_grids(torch.from_numpy(walk[d].astype(
+    grids = [qualities.sym_ctx_hist(torch.from_numpy(walk[d].astype(
         np.uint8)), torch.from_numpy(lengths[d]), order) for d in range(D)]
     sym = torch.stack([g[0] for g in grids])
     ctx = torch.stack([g[1] for g in grids])
@@ -191,7 +191,7 @@ def test_group_histogram_and_encode_match_per_block(order):
     freq, states, packed, wcounts = qualities.group_encode(sym, ctx, counts,
                                                            T, order)
     for d in range(D):
-        one = qualities.slab_histogram(sym[d], ctx[d], order)
+        one = grids[d][2]
         assert torch.equal(counts[d], one)
         enc = qualities.encode_from_grids(sym[d], ctx[d], one, B, L, order,
                                           1024)

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from scalce_tpu.models import entropy as ref_entropy
+from scalce_tpu.models import lossy as ref_lossy
 from scalce_tpu.ops import hist_pallas, rans_decode_pallas, rans_pallas
 from scalce_tpu.ops import rans as ref_rans
 from scalce_tpu.streams import qualities as ref_q
@@ -58,6 +59,37 @@ def test_pass_a_and_hist_match_reference(order):
         np.testing.assert_array_equal(
             hist.hist_ctx_plain(got[0], got[1], R, PB).numpy(),
             np.asarray(slab))
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("lossy,histogram", [(False, False), (True, True),
+                                             (True, False)])
+def test_sym_ctx_hist_lut_and_grids_only_match_reference(order, lossy,
+                                                         histogram):
+    """Pass A's entry point (on the CPU its plain version) with a lossy
+    LUT and in grids-only mode against the reference's sym_ctx_hist of
+    the remapped grid: ragged L = 101 with empty reads."""
+    B = 96
+    qual, lengths = _quals(40 + order, B, 101, 0)
+    lengths[:3] = 0                           # empty reads
+    qmap = None
+    if lossy:
+        qmap = ref_lossy.build_quant_map(
+            ref_lossy.sample_histogram(qual, lengths, B), 30)
+        assert not np.array_equal(qmap, ref_lossy.identity_map())
+    ref = ref_q.sym_ctx_hist(jnp.asarray(qual if qmap is None
+                                         else qmap[qual]),
+                             jnp.asarray(lengths), order)
+    got = qualities.sym_ctx_hist(
+        *_torch(qual, lengths), order,
+        None if qmap is None else torch.from_numpy(qmap), histogram)
+    for name, g, r in zip(("sym", "ctx"), got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r),
+                                      err_msg=name)
+    if histogram:
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
+    else:
+        assert got[2] is None
 
 
 def test_device_normalize_matches_reference():
