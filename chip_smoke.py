@@ -14,15 +14,16 @@ Phases (the first failure exits non-zero; no phase is caught):
      block, with and without the histogram (timed at order 1: lossless,
      through the map, grids only); K3 and K4 decode_quals in the
      decompress path's groups of D = 4 and 1 at order 1 (K3 and K4, with
-     decode_scan, also at orders 2 and 3); and K5/K6 at the shapes of a
-     data-parallel group of the file's first 4 blocks (K6: 134,217,728
-     indices into 286,136 cells; K5: T = 2048, N = 65536) and of its
-     first block alone; exact equality; per kernel, timed with CUDA
-     events: the wrapper, the launch alone (each kernel's ``prepare``),
-     the plain version, and the one PyTorch call that computes the same
-     function where there is one (K6: ``torch.bincount``); and its bound
-     from this run's bytes and operations, which the launch alone must
-     not beat
+     decode_scan, also at orders 2 and 3); K5 and K6 from the grids
+     that the data-parallel stage 1 leaves for the file's first 4 blocks
+     ([4, 262144, 128] int64, 286,136 cells; K5: T = 2048, 65,536 lanes)
+     and for its first block alone, and K6's flat entry at the lossy
+     all-reduce's shapes (one block's symbols into 95 cells); exact
+     equality; per kernel, timed with CUDA events: the wrapper, the
+     launch alone (each kernel's ``prepare``), the plain version, and
+     the one PyTorch call that computes the same function where there is
+     one (the flat K6: ``torch.bincount``); and its bound from this run's
+     bytes and operations, which the launch alone must not beat
   4. main path: compress a 1,148,576-read synthetic FASTQ on the card
      (single-end, lossless, every stage on the device, order 1, gz),
      decompress it in keep-order, require the input bytes back and K1-K4
@@ -34,7 +35,9 @@ Phases (the first failure exits non-zero; no phase is caught):
      in groups of 4 blocks (4 per card on one card: one group and a
      tail) must give the single-device encoder's payloads, and the
      --data-parallel driver (one block per card) phase 4's triplet; K1,
-     K2 (grids only), K5 and K6 must have run in each, counted apart
+     K2 (grids only), K5 and K6 must have run in each, counted apart;
+     then the driver's run once more under torch.profiler: the device
+     busy time
   7. paired-end: a 2 x 1,148,576-read pair compressed on the card (-r)
      and decompressed in keep-order must give both files back, with K1-K4
      launched; the --data-parallel pair (K1, K2, K5 and K6 launched)
@@ -44,16 +47,23 @@ Phases (the first failure exits non-zero; no phase is caught):
      models/lossy.py builds from the sampled reads (within the 30%
      budget); the --data-parallel lossy triplet equals the single-device
      one (K1, K2, K5 and K6 launched); the lossy histogram all-reduce
-     over every card equals the host's; a ragged lossy pair with N
-     bases gives the same triplets on the card and on the CPU
+     over every card equals the host's (one flat K6 launch per card); a
+     ragged lossy pair with N bases gives the same triplets on the card
+     and on the CPU
+  9. the bare command (``scalce_tpu_torch.cli.main`` with the reference
+     CLI's defaults: qualities coded on the host, each block at the
+     order its trial picks) on the main file: K1 and none of K2-K6 run,
+     the card's triplet equals the CPU's, and the bare ``-d`` (host
+     quality decode, no K4) gives the input back
 
 The line before the last is the card's name and power limit; the one
 before that is a JSON object with one entry per kernel (``launches``:
 phase 4's count for K1-K4, the phase-6 --data-parallel driver's for K5
 and K6, and their ``sharded_launches`` the ShardedEncoder's; phases 7
-and 8 check their own counts; ``ms`` the wrapper, ``kernel_ms`` the
-launch alone; K2's ``lut`` and ``grids_only``, K4's ``d1`` and K5's
-and K6's ``one_block`` the other cases above); the last line is
+to 9 check their own counts; ``ms`` the wrapper, ``kernel_ms`` the
+launch alone; K2's ``lut`` and ``grids_only``, K4's ``d1``, K5's and
+K6's ``one_block`` and K6's ``flat`` the other cases above); the last
+line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
 of scalce_tpu.
 """
@@ -322,35 +332,39 @@ def check_kernels(blocks, dev, kernels) -> dict:
             rans_decode.decode_quals_plain, a, rans_decode.prepare, 20, 1,
             a[:4], D * n_valid))
 
-    # the data-parallel group: stage 1 of every block, then the stacked
-    # (ctx, sym) cells (K6) and the stacked tables' (f, cum) (K5); and the
-    # same for the group's first block alone (the one-card --data-parallel
-    # driver's group)
+    # the data-parallel group: stage 1 of every block (K2 writes each
+    # block's grids into its slices of the group's), then K6 and K5 on
+    # those grids, each block against its own table; and the same for the
+    # group's first block alone (the one-card --data-parallel driver's
+    # group)
+    C = qualities.n_contexts(1)
     for tag, group in (("", blocks), (" 1 block", blocks[:1])):
         _, _, _, gsym, gctx, gcounts = mesh.stage1(
             mesh.upload_blocks(group, dev), [b.n_reads for b in group],
             k, seed, 1)
-        C = qualities.n_contexts(1)
-        gctx = qualities.stacked_ctx(gctx, 1).reshape(-1)
-        gsym = gsym.reshape(-1)
-        cells = len(group) * C * qualities.N_SYMS
-        idx = gctx * qualities.N_SYMS + gsym
         cases.append(Case(
-            "K6" + tag, histogram.histogram, histogram.histogram_plain,
-            (idx, cells), histogram.prepare, 20, 5, (idx,), idx.numel(),
-            library=lambda idx=idx, cells=cells: torch.bincount(
-                idx, minlength=cells)))
+            "K6" + tag, histogram.grid_histogram,
+            histogram.grid_histogram_plain,
+            (gsym, gctx, C, qualities.N_SYMS), histogram.prepare_grids, 20, 5,
+            (gsym, gctx), gsym.numel()))
         gfreq, gcum = entropy.device_normalize(gcounts, C, qualities.N_SYMS)
-        f_all, c_all = rans.gather_tables(gsym, gctx, gfreq.reshape(-1),
-                                          gcum.reshape(-1),
-                                          qualities.N_SYMS, T)
-        del gsym, gctx
         cases.append(Case(
-            "K5" + tag, rans_encode_flat.encode_scan_flat,
-            rans_encode_flat.encode_scan_flat_plain, (f_all, c_all),
-            rans_encode_flat.prepare, 10, 1, (f_all, c_all), f_all.numel()))
-        say(f"group of {len(group)} block(s): K6 S = {idx.numel()} into "
-            f"{cells} cells; K5 [T, N] = {list(f_all.shape)}")
+            "K5" + tag, rans_encode_flat.encode_grids,
+            rans_encode_flat.encode_grids_plain, (gsym, gctx, gfreq, gcum, T),
+            rans_encode_flat.prepare, 10, 1, (gsym, gctx, gfreq, gcum),
+            gsym.numel()))
+        say(f"group of {len(group)} block(s): K5 and K6 on grids "
+            f"{list(gsym.shape)}, {len(group) * C * qualities.N_SYMS} "
+            f"cells; K5 T = {T}, {gsym.numel() // T} lanes")
+    # the flat entry at the lossy all-reduce's shapes on one card: one
+    # block's symbols, padding in an overflow bin
+    q = torch.from_numpy(block.qual).to(dev)
+    valid = torch.arange(L, device=dev)[None, :] < lengths[:, None]
+    idx = torch.where(valid, torch.clamp(q.to(torch.int64) - 33, 0, 93), 94)
+    cases.append(Case(
+        "K6 flat", histogram.histogram, histogram.histogram_plain,
+        (idx, 95), histogram.prepare, 20, 5, (idx,), idx.numel(),
+        library=lambda: torch.bincount(idx.reshape(-1), minlength=95)))
 
     out = {}
     for case in cases:
@@ -455,7 +469,67 @@ def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
     say(f"compress: single-device {t_single:.3f} s = {mb / t_single:.2f} "
         f"MB/s, --data-parallel (1 block per card) {t_dp:.3f} s = "
         f"{mb / t_dp:.2f} MB/s | {smi}")
+    from scalce_tpu_torch.stage_profile import device_busy
+    prof = device_busy(lambda: scalce_tpu_torch.compress(Config(
+        inputs=(src,), output=os.path.join(tmp, "dp_prof"),
+        data_parallel=True, **SLICE), "cuda"))
+    if prof is None:
+        say("--data-parallel compress under torch.profiler: no device "
+            "events recorded (device busy not measured)")
+    else:
+        kinds = ", ".join(f"{name} {sec:.4f} s" for name, sec
+                          in sorted(prof["by_kind_s"].items()))
+        say(f"--data-parallel compress under torch.profiler: wall "
+            f"{prof['wall_s']:.3f} s, device busy {prof['busy_s']:.4f} s "
+            f"({kinds}) | {smi}")
     return sharded, driver
+
+
+def check_cli_defaults(src: str, data: bytes, tmp: str, kernels: dict,
+                       smi: str) -> None:
+    """Phase 9: the bare command (the reference CLI's defaults: qualities
+    coded on the host, each block at the order its trial picks) on the
+    main file, on the card and on the CPU; the card's triplet decompressed
+    by the bare ``-d`` (host quality decode)."""
+    from scalce_tpu_torch import cli, container
+    from scalce_tpu_torch.streams import qualities
+    reset(kernels)
+    t0 = time.monotonic()
+    cli.main([src, "-o", os.path.join(tmp, "bare")])
+    torch.cuda.synchronize()
+    t_c = time.monotonic() - t0
+    launches = counts(kernels, kernels)
+    t0 = time.monotonic()
+    cli.main(["-d", os.path.join(tmp, "bare.00.scalcen"), "-o",
+              os.path.join(tmp, "bare_out"), "--keep-order"])
+    t_d = time.monotonic() - t0
+    decode = counts(kernels, kernels)
+    with open(os.path.join(tmp, "bare_out.fastq"), "rb") as f:
+        if f.read() != data:
+            raise AssertionError("bare decompress != input")
+    if not launches["K1"] or any(launches[n] for n in ("K2", "K3", "K5",
+                                                        "K6")) \
+            or decode["K4"]:
+        raise AssertionError(f"the bare command must run K1 and code the "
+                             f"qualities on the host: compress {launches}, "
+                             f"decompress {decode}")
+    t0 = time.monotonic()
+    cli.main([src, "-o", os.path.join(tmp, "bare_cpu"), "--device", "cpu"])
+    t_cpu = time.monotonic() - t0
+    gpu = triplet(os.path.join(tmp, "bare"))
+    if gpu != triplet(os.path.join(tmp, "bare_cpu")):
+        raise AssertionError("bare command: card and CPU triplets differ")
+    reader = container.TripletReader(os.path.join(tmp, "bare.00.scalcen"))
+    orders = [qualities.parse(p["q"]).order for _, p in reader.iter_blocks()]
+    comp = sum(len(b) for _, b in gpu)
+    mb = len(data) / 1e6
+    say(f"bare command: {len(data)} B -> {comp} B (ratio "
+        f"{len(data) / comp:.4f}; quality orders {orders}), card == CPU "
+        f"triplet, host decompress gives the input back; launches "
+        f"{launches}")
+    say(f"bare compress {t_c:.3f} s = {mb / t_c:.2f} MB/s (CPU "
+        f"{t_cpu:.2f} s), decompress {t_d:.3f} s = {mb / t_d:.2f} MB/s | "
+        f"{smi}")
 
 
 def check_paired(tmp: str, kernels: dict, smi: str) -> None:
@@ -583,9 +657,11 @@ def check_lossy(src: str, data: bytes, lossless_bytes: int, tmp: str,
         f"sequences exact, qualities through the sampled map; launches "
         f"{launches}")
 
-    # the histogram all-reduce over every card (one K6 launch each)
+    # the histogram all-reduce over every card (one flat K6 launch each)
+    from scalce_tpu_torch.ops import histogram
     cards = mesh.local_mesh(device="cuda")
     group = blocks[:len(cards)]
+    histogram.histogram.launches = 0
     got = mesh.lossy_hist_allreduce(np.stack([b.qual for b in group]),
                                     np.stack([b.lengths for b in group]),
                                     cards).cpu().numpy()
@@ -593,6 +669,9 @@ def check_lossy(src: str, data: bytes, lossless_bytes: int, tmp: str,
                for b in group)
     if not np.array_equal(got, want):
         raise AssertionError("lossy histogram all-reduce != host histogram")
+    if histogram.histogram.launches != len(cards):
+        raise AssertionError("the all-reduce did not launch the flat K6 "
+                             "entry once per card")
     del blocks, group
 
     reset(kernels)
@@ -650,8 +729,8 @@ def main() -> int:
                "K2": (hist, qualities.sym_ctx_hist),
                "K3": (rans_encode, rans_encode.encode_scan),
                "K4": (rans_decode, rans_decode.decode_quals),
-               "K5": (rans_encode_flat, rans_encode_flat.encode_scan_flat),
-               "K6": (histogram, histogram.histogram)}
+               "K5": (rans_encode_flat, rans_encode_flat.encode_grids),
+               "K6": (histogram, histogram.grid_histogram)}
     main_path = ("K1", "K2", "K3", "K4")
 
     t0 = time.monotonic()                                       # phase 2
@@ -713,14 +792,15 @@ def main() -> int:
         launches.update(K5=driver["K5"], K6=driver["K6"])
         check_paired(tmp, kernels, smi)                         # phase 7
         check_lossy(src, data, comp, tmp, kernels, smi)         # phase 8
+        check_cli_defaults(src, data, tmp, kernels, smi)        # phase 9
 
     # K2 also through the lossy LUT and grids-only (the data-parallel
     # path's); K4 also at the main path's remainder group (D = 1); K5 and
     # K6 also at one block's shapes (the one-card --data-parallel
-    # driver's)
+    # driver's); K6 also through its flat entry (the all-reduce's)
     other = {"K2": (("K2 lut", "lut"), ("K2 grids", "grids_only")),
              "K4": (("K4 D=1", "d1"),), "K5": (("K5 1 block", "one_block"),),
-             "K6": (("K6 1 block", "one_block"),)}
+             "K6": (("K6 1 block", "one_block"), ("K6 flat", "flat"))}
     print(json.dumps({"kernels": [
         {"name": f"{name} {fn.__name__}", "route": "cuda",
          "source": mod.SOURCE, "replaces": mod.REPLACES,

@@ -13,10 +13,15 @@ first ``-S`` reads (default 100,000), within PCT percent of each value.
 ``--data-parallel`` compresses in groups of blocks (or pairs) over every
 visible card (``--device cuda``), or over the one device that ``cuda:N``
 or ``cpu`` names; the triplets are the same.  The parser is the
-reference's (``cli_args.build_parser``, a copy); its defaults are moved
-to the ported slice (device placement of every stage, quality context
-order 1, the best installed byte backend), so the bare command runs.
-Flags outside the slice raise NotImplementedError naming the ROADMAP.md
+reference's (``cli_args.build_parser``, a copy), with its quality
+defaults: the qualities are coded on the host, each block at the context
+order that its trial picks (``--qual-order 0``), so the bare command
+writes ``python -m scalce_tpu``'s bytes; ``--qual-device`` with a fixed
+``--qual-order`` codes them on the device (kernels K2-K6), and
+``--qual-device`` on decompress decodes them there (K4).  The cores and
+the delta run on the device (the placement defaults move there; they
+change no byte), and the backend is the best installed one.  Flags
+outside the ported part raise NotImplementedError naming the ROADMAP.md
 item that will add them.
 """
 
@@ -41,7 +46,7 @@ def build_parser():
     # delta_device None: the device delta match when compressing, the
     # host delta walk when decompressing (the flag names both)
     p.set_defaults(core_placement="device", delta_device=None,
-                   qual_device=True, qual_order=1, backend=DEFAULT_BACKEND)
+                   backend=DEFAULT_BACKEND)
     return p
 
 

@@ -41,8 +41,7 @@ constexpr int kNSyms = 94;
 constexpr int kRow = 96;      // u16 per staged row
 constexpr int kChunk = 16;    // cells per lane per load
 constexpr int kAhead = 4;     // chunks between an L2 prefetch and its use
-constexpr int kMaxF = 4096;
-constexpr int kRcpBytes = (kMaxF + 1) * 8;
+constexpr int kRcpBytes = (scalce::kMaxF + 1) * 8;
 constexpr int kSmemMax = 200 * 1024;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -59,10 +58,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
-
 // Entries [first, first + count) of the u16 table into `dst` (cp.async,
 // uncommitted; both multiples of 8).
 __device__ __forceinline__ void stage(uint16_t* dst, const uint16_t* tab,
@@ -73,25 +68,6 @@ __device__ __forceinline__ void stage(uint16_t* dst, const uint16_t* tab,
 }
 
 }  // namespace
-
-namespace scalce {
-
-// ceil(2^44 / f) << 20 for 2 <= f <= 4096 (f = 1 wraps to 0: callers
-// special-case it).
-__device__ __forceinline__ unsigned long long recip_of(uint32_t f) {
-  return ((((unsigned long long)1 << 44) + f - 1) / f) << 20;
-}
-
-// floor(x / f) for x < f << 20 (the encoder's state before the divide),
-// given M = recip_of(f): floor(x * M / 2^64), from 32-bit halves of M.
-__device__ __forceinline__ uint32_t div_recip(uint32_t x, uint32_t f,
-                                              unsigned long long M) {
-  const unsigned long long hi =
-      (unsigned long long)x * (uint32_t)(M >> 32) + __umulhi(x, (uint32_t)M);
-  return f == 1 ? x : (uint32_t)(hi >> 32);
-}
-
-}  // namespace scalce
 
 namespace {
 
@@ -191,7 +167,7 @@ __global__ void __launch_bounds__(128) rans_encode_kernel(
     stage(rows + kRow, tab, kRow + c.m * R * kRow, R * kRow);
   }
   cp_async_commit();
-  for (int f = threadIdx.x; f <= kMaxF; f += blockDim.x)
+  for (int f = threadIdx.x; f <= scalce::kMaxF; f += blockDim.x)
     rcp[f] = f >= 2 ? scalce::recip_of(f) : 0ull;
   uint32_t s_next[kChunk], c_next[kChunk];
   if (active) {
@@ -231,10 +207,10 @@ __global__ void __launch_bounds__(128) rans_encode_kernel(
     }
     if (active && pf.j >= 0) {
       const size_t r0 = base + (size_t)pf.j * L;
-      prefetch_l2(sym + 2 * (r0 + pf.lo));
-      prefetch_l2(sym + 2 * (r0 + pf.hi - 1));
-      prefetch_l2(ctx + 2 * (r0 + pf.lo));
-      prefetch_l2(ctx + 2 * (r0 + pf.hi - 1));
+      scalce::prefetch_l2(sym + 2 * (r0 + pf.lo));
+      scalce::prefetch_l2(sym + 2 * (r0 + pf.hi - 1));
+      scalce::prefetch_l2(ctx + 2 * (r0 + pf.lo));
+      scalce::prefetch_l2(ctx + 2 * (r0 + pf.hi - 1));
     }
     if (pf.j >= 0) pf = next_chunk(pf, nseg, cw, L);
     if (active) {

@@ -1,12 +1,12 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ONE ``nvcc`` call into one
-shared library with a plain C interface (no PyTorch headers: a build
-takes seconds, not minutes), at first use, into ``_build/`` under a
-name keyed by a hash of the sources and flags — so a fresh checkout
-builds itself, and an edited source never loads a stale library.  The
-library is loaded with ``ctypes``; every pointer and the stream are
-``c_void_p``.
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` call, all
+started together, and the objects are linked into one shared library
+with a plain C interface (no PyTorch headers: a build takes seconds, not
+minutes), at first use, into ``_build/`` under a name keyed by a hash of
+the sources and flags — so a fresh checkout builds itself, and an edited
+source never loads a stale library.  The library is loaded with
+``ctypes``; every pointer and the stream are ``c_void_p``.
 
 Each C entry point launches one kernel on the caller's stream and
 returns ``cudaGetLastError()``; :func:`launch` raises if that is not 0
@@ -32,7 +32,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,7 +46,8 @@ _SIGNATURES = {
     "scalce_divmod_recip": [_P, _P, _I, _P, _P, _P],
     "scalce_rans_decode": [_P] * 4 + [_I] * 7 + [_P, _P],
     "scalce_histogram": [_P, _L, _I, _P, _P],
-    "scalce_rans_encode_flat": [_P, _P, _I, _I, _P, _P, _P, _P],
+    "scalce_histogram_grids": [_P, _P, _I, _L, _I, _I, _P, _P],
+    "scalce_rans_encode_flat": [_P] * 3 + [_I, _I, _L, _I, _I] + [_P] * 4,
 }
 
 
@@ -78,24 +79,33 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile the kernels unless a library for these sources exists;
-    returns its path.  Builds into a temp file and renames, so a
-    concurrent or interrupted build never leaves a torn library."""
+    returns its path.  One ``nvcc -c`` per source, all running at once,
+    then one link; into a temp directory, then a rename, so a concurrent
+    or interrupted build never leaves a torn library."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cus = [p for p in _sources() if p.endswith(".cu")]
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
-                              capture_output=True, text=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cus = [p for p in _sources() if p.endswith(".cu")]
+        objs = [os.path.join(tmp, os.path.basename(p) + ".o") for p in cus]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, cu],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cu, obj in zip(cus, objs)]
+        logs = [(cu, proc.communicate()[0], proc.returncode)
+                for cu, proc in zip(cus, procs)]
+        failed = [f"{cu}:\n{log}" for cu, log, rc in logs if rc]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        so = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", so,
+                               *objs], capture_output=True, text=True)
         if proc.returncode:
-            raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError("nvcc link failed:\n" + proc.stdout
+                               + proc.stderr)
+        os.replace(so, path)
     return path
 
 

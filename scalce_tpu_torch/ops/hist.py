@@ -30,11 +30,13 @@ def hist_ctx_plain(sym: torch.Tensor, ctx: torch.Tensor, R: int, PB: int,
 
 
 def prepare(qual: torch.Tensor, lengths: torch.Tensor, order: int, R: int,
-            PB: int, qual_map=None, histogram: bool = True):
+            PB: int, qual_map=None, histogram: bool = True, out=None):
     """The CUDA path of pass A up to the launch, for context ``order``
     with slab spec ``(R, PB)``.  Returns ``(launch, (sym, ctx, counts))``:
     each ``launch()`` zeroes ``counts`` (None without ``histogram``) and
-    runs the kernel once into the three outputs."""
+    runs the kernel once into the three outputs; the grids are ``out =
+    (sym, ctx)`` when given (int64 ``[B, L]``, contiguous: a block's
+    slices of a group's grids)."""
     B, L = qual.shape
     dev = qual.device
     ln = lengths.to(torch.int64)
@@ -42,8 +44,12 @@ def prepare(qual: torch.Tensor, lengths: torch.Tensor, order: int, R: int,
     _cuda.require(ln, "lengths", torch.int64, (B,), dev)
     if qual_map is not None:
         _cuda.require(qual_map, "qual_map", torch.uint8, (256,), dev)
-    sym = torch.empty((B, L), dtype=torch.int64, device=dev)
-    ctx = torch.empty((B, L), dtype=torch.int64, device=dev)
+    if out is None:
+        out = tuple(torch.empty((B, L), dtype=torch.int64, device=dev)
+                    for _ in range(2))
+    sym, ctx = out
+    _cuda.require(sym, "sym", torch.int64, (B, L), dev)
+    _cuda.require(ctx, "ctx", torch.int64, (B, L), dev)
     counts = (torch.empty((1 + PB * R) * 94, dtype=torch.int32, device=dev)
               if histogram else None)
 

@@ -5,8 +5,10 @@ the contiguous span ``[n*T, (n+1)*T)``; every lane is an independent u32
 rANS coder with 12-bit probabilities and 16-bit renormalization words.
 The generic coder API (:func:`rans_encode` over any flat table,
 :func:`context_histogram`) runs kernels K5 (``ops/rans_encode_flat.py``)
-and K6 (``ops/histogram.py``); the quality stream's table-resident scans
-are K3 (``ops/rans_encode.py``) and K4 (``ops/rans_decode.py``).  The
+and K6 (``ops/histogram.py``), which also take D blocks' grids against
+:func:`stacked_rows` of their tables at once; the quality stream's
+table-resident scans are K3 (``ops/rans_encode.py``) and K4
+(``ops/rans_decode.py``).  The
 TPU's two-step f32 divide and lax.scan formulation are not carried over —
 torch divides int64 exactly.
 """
@@ -16,8 +18,6 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 import torch
-
-from scalce_tpu_torch.ops.histogram import histogram
 
 PROB_BITS = 12
 M_TOTAL = 1 << PROB_BITS
@@ -38,6 +38,14 @@ def gather_tables(sym: torch.Tensor, ctx: torch.Tensor,
             cum_lut[idx].reshape(N, T).T.contiguous())
 
 
+def stacked_rows(ctx: torch.Tensor, n_ctx: int) -> torch.Tensor:
+    """Context grids of D blocks ``[D, ...]`` -> rows of the stacked
+    ``[D*n_ctx, ...]`` table: block d's context c is row ``d*n_ctx + c``."""
+    D = ctx.shape[0]
+    off = n_ctx * torch.arange(D, dtype=torch.int64, device=ctx.device)
+    return ctx + off.reshape(D, *([1] * (ctx.dim() - 1)))
+
+
 def rans_encode(sym: torch.Tensor, ctx: torch.Tensor,
                 freq_lut: torch.Tensor, cum_lut: torch.Tensor,
                 n_syms: int, T: int
@@ -47,11 +55,13 @@ def rans_encode(sym: torch.Tensor, ctx: torch.Tensor,
     sym, ctx: u32 ``[S]`` (int64), lane-major.  freq_lut, cum_lut: u32
     ``[C * n_syms]`` tables (row = ctx).  Returns ``(states u32 [N],
     words u16 [T, N] (int32), emits bool [T, N])`` with the time axis in
-    DECODE order: the table gather, then kernel K5."""
+    DECODE order: kernel K5 on one block."""
     # K5's module imports this one for the coder constants
-    from scalce_tpu_torch.ops.rans_encode_flat import encode_scan_flat
-    return encode_scan_flat(*gather_tables(sym, ctx, freq_lut, cum_lut,
-                                           n_syms, T))
+    from scalce_tpu_torch.ops.rans_encode_flat import encode_grids
+    C = freq_lut.numel() // n_syms
+    return encode_grids(sym[None], ctx[None],
+                        freq_lut.reshape(1, C, n_syms),
+                        cum_lut.reshape(1, C, n_syms), T)
 
 
 def compact_emissions(words: torch.Tensor, emits: torch.Tensor
@@ -71,9 +81,11 @@ def compact_emissions(words: torch.Tensor, emits: torch.Tensor
 
 def context_histogram(sym: torch.Tensor, ctx: torch.Tensor, n_ctx: int,
                       n_syms: int) -> torch.Tensor:
-    """Histogram of (ctx, sym) pairs -> i32 ``[n_ctx * n_syms]`` (kernel
-    K6 over the flat cell ``ctx * n_syms + sym``)."""
-    return histogram(ctx * n_syms + sym, n_ctx * n_syms)
+    """Histogram of (ctx, sym) pairs -> i32 ``[n_ctx * n_syms]``: kernel
+    K6 on one block."""
+    # K6's module imports this one for stacked_rows
+    from scalce_tpu_torch.ops.histogram import grid_histogram
+    return grid_histogram(sym[None], ctx[None], n_ctx, n_syms)
 
 
 def cum_rows(freq: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,14 @@
 """Single-host data parallelism (port of ``scalce_tpu/parallel/mesh.py``,
-full-device placement).
+cores and delta on the device).
 
 Blocks are independent, so a group of ``D = len(mesh) * group`` blocks
 is split over the devices, ``group`` consecutive blocks each.  Each
-device runs stages A and B per block, then counts its blocks' quality
-grids in ONE launch of kernel K6 and rANS-encodes them in ONE launch of
-kernel K5 over the stacked per-block tables: the reference's
-``jax.vmap`` over a device's blocks, written out as one flat problem.
+device runs stages A and B per block, then, with device-placed
+qualities, counts its blocks' quality grids in ONE launch of kernel K6
+and rANS-encodes them in ONE launch of kernel K5, each block's cells
+against its own table: the reference's ``jax.vmap`` over a device's
+blocks, written out as one flat problem.  With host-placed qualities
+the host codec encodes each block's at assembly.
 A group of D pairs runs mate 1's stage 1, then mate 2's following each
 block's permutation, then each mate's pass B.  The encoder sends nothing
 between devices; the one collective is :func:`lossy_hist_allreduce`
@@ -49,18 +51,19 @@ def local_mesh(n: Optional[int] = None, device="cuda") -> List[torch.device]:
     return devs[:n]
 
 
-def upload_blocks(blocks: Sequence[ReadBlock], device
+def upload_blocks(blocks: Sequence[ReadBlock], device, qual: bool = True
                   ) -> Dict[str, torch.Tensor]:
     """H2D of one device's blocks, stacked (the reference's
     ``_stack_blocks``): 2-bit packed sequences ``[g, B, L/16]``,
-    qualities ``[g, B, L]``, lengths ``[g, B]``, and a tuple of each
-    block's flat exception positions."""
-    t = convert.from_reference({
-        "seq": np.stack([_pack2bit_np(b.seq).reshape(b.seq.shape[0], -1)
-                         for b in blocks]),
-        "qual": np.stack([b.qual for b in blocks]),
-        "len": np.stack([b.lengths for b in blocks]),
-        "exc": np.concatenate([b.exc_pos for b in blocks])}, device)
+    qualities ``[g, B, L]`` (with ``qual``), lengths ``[g, B]``, and a
+    tuple of each block's flat exception positions."""
+    host = {"seq": np.stack([_pack2bit_np(b.seq).reshape(b.seq.shape[0], -1)
+                             for b in blocks]),
+            "len": np.stack([b.lengths for b in blocks]),
+            "exc": np.concatenate([b.exc_pos for b in blocks])}
+    if qual:
+        host["qual"] = np.stack([b.qual for b in blocks])
+    t = convert.from_reference(host, device)
     t["exc"] = torch.split(t["exc"], [b.exc_pos.size for b in blocks])
     return t
 
@@ -70,26 +73,35 @@ def stage1(pre: Dict[str, torch.Tensor], n_reads: Sequence[int], k: int,
            perms: Optional[Sequence[torch.Tensor]] = None):
     """One device's share of a group (the reference's
     ``make_sharded_stage1`` on one device): stages A and B per block
-    (K2 writes each block's grids without counting them), then ONE K6
-    launch over the stacked grids.  With ``perms`` (mate 1's
-    permutations) the blocks are mate 2's, each following its mate-1
-    block's permutation (``make_sharded_stage_mate2``).  Returns
-    per-block lists ``perm``, ``delta``, ``len_s``, then ``sym`` and
-    ``ctx`` ``[g, B, L]`` and ``counts`` ``[g, C*94]``."""
-    if perms is None:
-        outs = [encode._encode_core(pre["seq"][j], pre["qual"][j],
-                                    pre["len"][j], n, pre["exc"][j], k, seed,
-                                    order, qual_map)
-                for j, n in enumerate(n_reads)]
-    else:
-        outs = [encode._encode_core_mate2(pre["seq"][j], pre["qual"][j],
-                                          pre["len"][j], n, pre["exc"][j],
-                                          perms[j], k, seed, order, qual_map)
-                for j, n in enumerate(n_reads)]
-    perm, delta, len_s, sym, ctx = map(list, zip(*outs))
-    sym, ctx = torch.stack(sym), torch.stack(ctx)
-    return (perm, delta, len_s, sym, ctx,
-            qualities.group_histogram(sym, ctx, order))
+    (K2 writes each block's grids, without counting them, into its
+    slices of the share's ``[g, B, L]`` grids), then ONE K6 launch
+    counts them.  With ``perms`` (mate 1's permutations) the blocks are
+    mate 2's, each following its mate-1 block's permutation
+    (``make_sharded_stage_mate2``).  Returns per-block lists ``perm``,
+    ``delta``, ``len_s``, then ``sym`` and ``ctx`` ``[g, B, L]`` and
+    ``counts`` ``[g, C*94]``; without qualities in ``pre`` (host
+    placement: ``make_sharded_stage1_nq``) the last three are None."""
+    qual = pre.get("qual")
+    sym = ctx = None
+    if qual is not None:
+        sym = torch.empty(qual.shape, dtype=torch.int64, device=qual.device)
+        ctx = torch.empty_like(sym)
+    outs = []
+    for j, n in enumerate(n_reads):
+        q, grids = (None, None) if qual is None else (qual[j],
+                                                      (sym[j], ctx[j]))
+        if perms is None:
+            outs.append(encode._encode_core(
+                pre["seq"][j], q, pre["len"][j], n, pre["exc"][j], k, seed,
+                order, qual_map, grids))
+        else:
+            outs.append(encode._encode_core_mate2(
+                pre["seq"][j], q, pre["len"][j], n, pre["exc"][j], perms[j],
+                k, seed, order, qual_map, grids))
+    perm, delta, len_s = map(list, zip(*outs))
+    counts = None if qual is None else qualities.group_histogram(sym, ctx,
+                                                                 order)
+    return perm, delta, len_s, sym, ctx, counts
 
 
 class ShardedEncoder:
@@ -98,7 +110,10 @@ class ShardedEncoder:
     ``device`` names them (see :func:`local_mesh`) unless ``mesh`` lists
     them; ``group`` blocks go to each device per step (default 1);
     ``qual_map`` is the lossy quality map (None: lossless), kept on each
-    device.  Payloads are byte-identical to :class:`BlockEncoder`'s."""
+    device.  With host-placed qualities (``cfg.qual_on_device`` False)
+    the devices run stages A and B of the sequences only and the host
+    codec encodes each block's qualities at assembly.  Payloads are
+    byte-identical to :class:`BlockEncoder`'s."""
 
     def __init__(self, cfg: Config, device, mesh=None,
                  group: Optional[int] = None, qual_map=None):
@@ -122,8 +137,8 @@ class ShardedEncoder:
         if len(blocks) != self.D:
             return None
         with stage("upload"):
-            return [upload_blocks(share, dev) for share, dev
-                    in zip(self._shares(blocks), self.mesh)]
+            return [upload_blocks(share, dev, self.cfg.qual_on_device)
+                    for share, dev in zip(self._shares(blocks), self.mesh)]
 
     def _stage1(self, blocks: Sequence[ReadBlock], pre=None, perms=None):
         """Every device's :func:`stage1` of a full group (``perms``: per
@@ -144,8 +159,12 @@ class ShardedEncoder:
 
     def _pass_b(self, blocks: Sequence[ReadBlock], s1):
         """Every device's group pass B: ``(perm, delta, len_s, freq,
-        states, packed, wcounts)`` per device."""
+        states, packed, wcounts)`` per device (the last four None for
+        host-placed qualities, which the host encodes at assembly)."""
         cfg = self.cfg
+        if not cfg.qual_on_device:
+            return [(perm, delta, len_s, None, None, None, None)
+                    for perm, delta, len_s, *_ in s1]
         B, L = blocks[0].seq.shape
         T = qualities.pick_T(B, L, cfg.qual_T_target)
         with stage("pass B"):
@@ -168,10 +187,12 @@ class ShardedEncoder:
         for share, (perm, delta, len_s, freq, states, packed,
                     wcounts) in zip(self._shares(blocks), devout):
             for j, block in enumerate(share):
-                with stage("pass B"):
-                    enc_q = qualities.finish_encoded(
-                        freq[j], states[j], packed[j], wcounts[j], B, L, T,
-                        cfg.qual_context_order)
+                enc_q = None
+                if freq is not None:
+                    with stage("pass B"):
+                        enc_q = qualities.finish_encoded(
+                            freq[j], states[j], packed[j], wcounts[j], B, L,
+                            T, cfg.qual_context_order)
                 out.append(self._fallback.assemble_encoded(
                     block, perm[j], delta[j], len_s[j], enc_q))
         return out

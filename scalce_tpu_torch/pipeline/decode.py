@@ -1,10 +1,11 @@
-"""Block decode pipeline (port of ``scalce_tpu/pipeline/decode.py`` with
-the device quality decode).
+"""Block decode pipeline (port of ``scalce_tpu/pipeline/decode.py``).
 
 Per group of up to ``DECODE_GROUP`` blocks: the host parses each
-block's sequence payload (serial delta walk in the native library), one
-K4 launch decodes every block's qualities, then ``_finish`` restores
-strand orientation, names and — under keep-order — arrival order.
+block's sequence payload (serial delta walk in the native library), the
+qualities decode on the host (``qualities_host.decode_host``, the
+default) or in one K4 launch for every block (``qual_on_device``), then
+``_finish`` restores strand orientation, names and — under keep-order —
+arrival order.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from scalce_tpu_torch.io.fastq import Ragged, lens_to_offsets, reorder_ragged
 from scalce_tpu_torch.streams import names as names_stream
 from scalce_tpu_torch.device import resolve_device
 from scalce_tpu_torch.timing import stage
-from scalce_tpu_torch.streams import qualities, seqs
+from scalce_tpu_torch.streams import qualities, qualities_host, seqs
 
 
 @dataclasses.dataclass
@@ -39,10 +40,14 @@ DECODE_GROUP = 4
 
 
 class BlockDecoder:
-    def __init__(self, meta: Dict, device, keep_order: bool = False):
+    def __init__(self, meta: Dict, device, keep_order: bool = False,
+                 qual_on_device: bool = False):
         self.meta = meta
         self.device = resolve_device(device)
         self.keep_order = keep_order
+        #: quality-decode placement, a per-run choice (the payload does
+        #: not depend on where it was encoded)
+        self.qual_on_device = qual_on_device
         self._name_counter = 1          # template-mode running index
 
     def parse_block(self, payloads: Dict[str, bytes]):
@@ -55,13 +60,17 @@ class BlockDecoder:
             return parsed, qualities.parse(payloads["q"])
 
     def decode_blocks(self, payload_list) -> List["DecodedBlock"]:
-        """Decode up to DECODE_GROUP blocks; their qualities decode in
-        one launch (D = the group's size) unless their (B, L, T, order)
-        differ, as per-block order selection can make them."""
+        """Decode up to DECODE_GROUP blocks.  On the device their
+        qualities decode in one launch (D = the group's size) unless
+        their (B, L, T, order) differ, as per-block order selection can
+        make them; on the host, block by block."""
         parsed, encs = zip(*(self.parse_block(p) for p in payload_list))
         lengths = [pr[1] for pr in parsed]
         with stage("quality decode"):
-            if len({(e.B, e.L, e.T, e.order) for e in encs}) == 1:
+            if not self.qual_on_device:
+                quals = [qualities_host.decode_host(e, ln)
+                         for e, ln in zip(encs, lengths)]
+            elif len({(e.B, e.L, e.T, e.order) for e in encs}) == 1:
                 quals = qualities.decode_batch(list(encs), lengths,
                                                self.device)
             else:

@@ -28,6 +28,9 @@ from scalce_tpu_torch.timing import stage
 
 @dataclasses.dataclass
 class RunStats:
+    """The reference's run record (per-stream bytes, ratio, GB/s, host
+    seconds of the compress's ``device_dispatch`` and ``assemble``
+    calls, placement) plus ``device``, the devices it ran on."""
     mode: str
     device: str = ""
     n_reads: int = 0
@@ -36,13 +39,28 @@ class RunStats:
     output_bytes: int = 0
     stream_bytes: Dict[str, int] = dataclasses.field(
         default_factory=lambda: {"n": 0, "r": 0, "q": 0})
+    stage_s: Dict[str, float] = dataclasses.field(default_factory=dict)
     wall_s: float = 0.0
+    placement: str = ""         # compute placement (encode)
 
     def to_json(self) -> str:
         d = dataclasses.asdict(self)
         if self.input_bytes and self.output_bytes:
             d["ratio"] = self.input_bytes / self.output_bytes
+        if self.wall_s > 0:
+            d["GBps"] = self.input_bytes / self.wall_s / 1e9
         return json.dumps(d, sort_keys=True)
+
+
+def _timed(seconds: Dict[str, float], name: str, fn, *args):
+    """``fn(*args)``, adding its host-clock seconds to ``seconds[name]``
+    (no device synchronization: a dispatch's time is its enqueue and
+    whatever its own downloads wait for)."""
+    t0 = time.monotonic()
+    try:
+        return fn(*args)
+    finally:
+        seconds[name] = seconds.get(name, 0.0) + time.monotonic() - t0
 
 
 def _lossy_preamble(cfg: Config, blocks: Iterator):
@@ -115,21 +133,40 @@ def compress(cfg: Config, device) -> RunStats:
     if cfg.data_parallel:
         senc = ShardedEncoder(cfg, device, qual_map=qual_map)
         D, devices = senc.D, senc.mesh
-        encode_group = senc.encode_block_pairs if cfg.paired \
-            else senc.encode_blocks
+
+        def dispatch(group):
+            # a tail group takes the single-device encoder at assembly
+            if len(group) < D:
+                return None
+            return senc.encode_device_pair(group) if cfg.paired \
+                else senc.encode_device(group)
+
+        def assemble(group, devout):
+            if devout is None:
+                return [senc._fallback.encode_block_pair(*b) if cfg.paired
+                        else senc._fallback.encode_block(b) for b in group]
+            return senc.assemble_pair(group, devout) if cfg.paired \
+                else senc.assemble(group, devout)
     else:
         enc = BlockEncoder(cfg, device, qual_map)
         D, devices = 1, [enc.device]
 
-        def encode_group(group):
-            return [enc.encode_block_pair(*b) if cfg.paired
-                    else enc.encode_block(b) for b in group]
-    stats = RunStats(mode="compress",
+        def dispatch(group):
+            return [enc.encode_device_pair(*b) if cfg.paired
+                    else enc.encode_device(b) for b in group]
+
+        def assemble(group, devouts):
+            return [enc.assemble_pair(*b, d) if cfg.paired
+                    else enc.assemble(b, d) for b, d in zip(group, devouts)]
+    stats = RunStats(mode="compress", placement="device",
                      device=",".join(str(d) for d in devices))
     writers = _open_writers(cfg)
     try:
         for group in _groups(blocks, D, writers[0].existing_blocks):
-            for out in encode_group(group):
+            devout = _timed(stats.stage_s, "device_dispatch", dispatch,
+                            group)
+            for out in _timed(stats.stage_s, "assemble", assemble, group,
+                              devout):
                 ebs = out if cfg.paired else (out,)
                 with stage("write"):
                     for w, eb in zip(writers, ebs):
@@ -179,10 +216,6 @@ def check_decode_config(cfg: Config) -> None:
     if cfg.delta_on_device:
         raise NotImplementedError(
             "--delta-device decode: ROADMAP.md Queue 1 item 15")
-    if not cfg.qual_on_device:
-        raise NotImplementedError(
-            "host quality decode (the port decodes qualities on the "
-            "device, --qual-device): ROADMAP.md Queue 1 item 11")
 
 
 def decompress(cfg: Config, device) -> RunStats:
@@ -203,7 +236,8 @@ def decompress(cfg: Config, device) -> RunStats:
         readers = [reader]
         paths = [None if cfg.output == "-" else cfg.output
                  if cfg.output.endswith(".fastq") else cfg.output + ".fastq"]
-    decs = [BlockDecoder(reader.meta, device, keep_order=cfg.keep_order)
+    decs = [BlockDecoder(reader.meta, device, keep_order=cfg.keep_order,
+                         qual_on_device=cfg.qual_on_device)
             for _ in readers]
     stats = RunStats(mode="decompress", device=str(decs[0].device))
     with contextlib.ExitStack() as files:

@@ -1,12 +1,14 @@
 """Block encode pipeline (port of ``scalce_tpu/pipeline/encode.py``,
-full-device placement).
+cores and delta on the device, qualities on either side).
 
 Per block: stage A (unpack the 2-bit upload, canonical cores, sort
 keys, one stable multi-key sort, permute), stage B (aligned-predecessor
-delta of the sorted sequences; the quality grids and histogram, through
-the lossy map if any, in one K2 launch), then the host assembly of the
-``n``/``r``/``q`` payloads.  Paired-end: mate 2 computes its own cores
-but follows mate 1's permutation.  Every payload byte is the
+delta of the sorted sequences; with device-placed qualities, the quality
+grids and histogram, through the lossy map if any, in one K2 launch),
+then the host assembly of the ``n``/``r``/``q`` payloads, where
+host-placed qualities (the CLI's default) are encoded by
+``streams/qualities_host.py``.  Paired-end: mate 2 computes its own
+cores but follows mate 1's permutation.  Every payload byte is the
 reference's for the same block and Config.
 """
 
@@ -28,7 +30,7 @@ from scalce_tpu_torch.device import resolve_device
 from scalce_tpu_torch.ops import core_match, reorder
 from scalce_tpu_torch.ops.bitops import (MASK32, pack_bases_u32, popcount32,
                                          unpack_bases_u32)
-from scalce_tpu_torch.streams import qualities, seqs
+from scalce_tpu_torch.streams import qualities, qualities_host, seqs
 
 _DELTA_K = 4          # candidate predecessors per read (2-bit selector)
 _EVEN = 0x55555555
@@ -36,20 +38,21 @@ _EVEN = 0x55555555
 
 def check_encode_config(cfg: Config) -> None:
     """Raise NotImplementedError for a Config outside the ported slice
-    (full-device placement, hash dictionary, short reads, one host),
-    naming the ROADMAP.md Queue 1 item that will add it."""
+    (cores and delta on the device, qualities on either side, hash
+    dictionary, short reads, one host), naming the ROADMAP.md Queue 1
+    item that will add it."""
     if cfg.dict_mode != "hash":
         raise NotImplementedError(
             f"dict_mode {cfg.dict_mode!r}: ROADMAP.md Queue 1 item 14")
     if cfg.max_read_len > 32752:
         raise NotImplementedError(
-            "long reads (max_read_len > 32752): ROADMAP.md Queue 1 item 11")
-    if not (cfg.core_on_device is True and cfg.delta_on_device
-            and cfg.qual_on_device):
+            "long reads (max_read_len > 32752): ROADMAP.md Queue 1 item "
+            "11c")
+    if not (cfg.core_on_device is True and cfg.delta_on_device):
         raise NotImplementedError(
-            "host or AUTO placements (the port runs core_on_device, "
-            "delta_on_device and qual_on_device): ROADMAP.md Queue 1 "
-            "item 11")
+            "host core, host delta or AUTO placement (the port runs "
+            "core_on_device and delta_on_device): ROADMAP.md Queue 1 "
+            "item 11b")
     if cfg.n_hosts > 1:
         raise NotImplementedError(
             "multi-host (n_hosts > 1, --merge-hosts), single-end or "
@@ -180,13 +183,15 @@ def _stage_a_prologue(seq_packed: torch.Tensor, lengths: torch.Tensor,
 def _device_stage_a(seq_packed, qual, lengths, n_reads: int, exc_pos,
                     k: int, seed: int):
     """Stage A: unpack -> canonical cores -> sort -> orient + permute.
-    Qualities stay in their original orientation."""
+    Qualities stay in their original orientation; with host-placed
+    qualities (``qual`` None) ``qual_s`` is None."""
     lengths, codes_o, ck, cp, is_rc = _stage_a_prologue(
         seq_packed, lengths, exc_pos, k, seed)
     keys = core_match.build_sort_keys(codes_o, lengths, ck, cp, n_reads)
     perm = reorder.sort_permutation(keys)
-    codes_s, qual_s, len_s, ck_s, cp_s, rc_s = reorder.apply_permutation(
-        perm, codes_o, qual, lengths, ck, cp, is_rc)
+    codes_s, len_s, ck_s, cp_s, rc_s = reorder.apply_permutation(
+        perm, codes_o, lengths, ck, cp, is_rc)
+    qual_s = None if qual is None else qual[perm]
     return perm, codes_s, qual_s, len_s, ck_s, cp_s, rc_s
 
 
@@ -197,49 +202,57 @@ def _device_stage_a2(seq_packed, qual, lengths, exc_pos, perm, k: int,
     place of a sort, so pairs stay line-synchronized."""
     lengths, codes_o, ck, cp, is_rc = _stage_a_prologue(
         seq_packed, lengths, exc_pos, k, seed)
-    return reorder.apply_permutation(perm, codes_o, qual, lengths, ck, cp,
-                                     is_rc)
+    codes_s, len_s, ck_s, cp_s, rc_s = reorder.apply_permutation(
+        perm, codes_o, lengths, ck, cp, is_rc)
+    qual_s = None if qual is None else qual[perm]
+    return codes_s, qual_s, len_s, ck_s, cp_s, rc_s
 
 
 def _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s, rc_s, n_reads: int,
                     order: int, qual_map: Optional[torch.Tensor] = None,
-                    histogram: bool = True):
+                    histogram: bool = True, grids=None):
     """Stage B: predecessor delta, then quality pass A (one K2 launch:
-    the lossy map, the symbol/context grids and, with ``histogram``,
-    their counts; a data-parallel group counts its blocks with one K6
-    launch instead).  Returns ``(delta, sym, ctx, counts)``."""
+    the lossy map, the symbol/context grids, written into ``grids`` when
+    given, and, with ``histogram``, their counts; a data-parallel group
+    counts its blocks with one K6 launch instead).  Returns ``(delta,
+    sym, ctx, counts)``; the last three are None for host-placed
+    qualities (``qual_s`` None)."""
     delta = _delta_seq(codes_s, len_s, ck_s, cp_s, n_reads)
     delta["rc_bits"] = _pack_bits(rc_s)
+    if qual_s is None:
+        return delta, None, None, None
     sym, ctx, counts = qualities.sym_ctx_hist(qual_s, len_s, order,
-                                              qual_map, histogram)
+                                              qual_map, histogram, grids)
     return delta, sym, ctx, counts
 
 
 def _encode_core(seq_packed, qual, lengths, n_reads: int, exc_pos, k: int,
                  seed: int, order: int,
-                 qual_map: Optional[torch.Tensor] = None):
-    """Stages A and B of one block -> ``(perm, delta, len_s, sym, ctx)``:
-    the reference's ``_encode_core`` without its histogram, which a
-    data-parallel group takes over all its blocks at once."""
+                 qual_map: Optional[torch.Tensor] = None, grids=None):
+    """Stages A and B of one block -> ``(perm, delta, len_s)``: the
+    reference's ``_encode_core`` (``_encode_core_nq`` when ``qual`` is
+    None) without its histogram, which a data-parallel group takes over
+    all its blocks at once; K2 writes the quality grids into ``grids``,
+    the block's slices of the group's ``(sym, ctx)``."""
     perm, codes_s, qual_s, len_s, ck_s, cp_s, rc_s = _device_stage_a(
         seq_packed, qual, lengths, n_reads, exc_pos, k, seed)
-    delta, sym, ctx, _ = _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s,
-                                         rc_s, n_reads, order, qual_map,
-                                         histogram=False)
-    return perm, delta, len_s, sym, ctx
+    delta = _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s, rc_s,
+                            n_reads, order, qual_map, histogram=False,
+                            grids=grids)[0]
+    return perm, delta, len_s
 
 
 def _encode_core_mate2(seq_packed, qual, lengths, n_reads: int, exc_pos,
                        perm, k: int, seed: int, order: int,
-                       qual_map: Optional[torch.Tensor] = None):
+                       qual_map: Optional[torch.Tensor] = None, grids=None):
     """Mate 2's counterpart of :func:`_encode_core`, following mate 1's
     ``perm`` (returned first, as mate 2's payloads store it)."""
     codes_s, qual_s, len_s, ck_s, cp_s, rc_s = _device_stage_a2(
         seq_packed, qual, lengths, exc_pos, perm, k, seed)
-    delta, sym, ctx, _ = _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s,
-                                         rc_s, n_reads, order, qual_map,
-                                         histogram=False)
-    return perm, delta, len_s, sym, ctx
+    delta = _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s, rc_s,
+                            n_reads, order, qual_map, histogram=False,
+                            grids=grids)[0]
+    return perm, delta, len_s
 
 
 def download_delta(delta: Dict[str, torch.Tensor]) -> Dict:
@@ -271,31 +284,37 @@ class EncodedBlock:
 class BlockEncoder:
     """Per-block encoder on one device (``"cuda"``, ``"cuda:N"``, or
     ``"cpu"`` for the plain torch versions), with the lossy quality map
-    ``qual_map`` (uint8 ``[256]``; None or the identity: lossless)."""
+    ``qual_map`` (uint8 ``[256]``; None or the identity: lossless).  With
+    ``cfg.qual_on_device`` False the qualities never reach the device:
+    the host codec encodes them at assembly."""
 
     def __init__(self, cfg: Config, device, qual_map=None):
         check_encode_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.qual_map = device_qual_map(qual_map, self.device)
+        self.qual_map_np = None if qual_map is None else np.asarray(
+            qual_map, np.uint8)
 
     def upload(self, block: ReadBlock) -> Dict[str, torch.Tensor]:
         """H2D: host-packed 2-bit sequences, lengths, exception
-        positions and qualities."""
+        positions and, when they are device-placed, qualities."""
         packed = _pack2bit_np(block.seq).reshape(block.seq.shape[0], -1)
-        return convert.from_reference({
-            "seq": packed, "len": block.lengths, "exc": block.exc_pos,
-            "qual": block.qual}, self.device)
+        host = {"seq": packed, "len": block.lengths, "exc": block.exc_pos}
+        if self.cfg.qual_on_device:
+            host["qual"] = block.qual
+        return convert.from_reference(host, self.device)
 
     def encode_device(self, block: ReadBlock, pre=None):
-        """Stages A and B; returns the device outputs ``assemble`` reads."""
+        """Stages A and B; returns the device outputs ``assemble`` reads
+        (grids and counts None for host-placed qualities)."""
         cfg = self.cfg
         if pre is None:
             with stage("upload"):
                 pre = self.upload(block)
         with stage("stage A"):
             perm, codes_s, qual_s, len_s, ck_s, cp_s, rc_s = _device_stage_a(
-                pre["seq"], pre["qual"], pre["len"], block.n_reads,
+                pre["seq"], pre.get("qual"), pre["len"], block.n_reads,
                 pre["exc"], cfg.core_k, cfg.dict_seed)
         with stage("stage B"):
             delta, sym, ctx, counts = _device_stage_b(
@@ -314,9 +333,9 @@ class BlockEncoder:
         with stage("upload"):
             pre2 = self.upload(b2)
         with stage("stage A (mate 2)"):
-            a2 = _device_stage_a2(pre2["seq"], pre2["qual"], pre2["len"],
-                                  pre2["exc"], perm, cfg.core_k,
-                                  cfg.dict_seed)
+            a2 = _device_stage_a2(pre2["seq"], pre2.get("qual"),
+                                  pre2["len"], pre2["exc"], perm,
+                                  cfg.core_k, cfg.dict_seed)
         with stage("stage B (mate 2)"):
             delta, sym, ctx, counts = _device_stage_b(
                 *a2, b2.n_reads, cfg.qual_context_order, self.qual_map)
@@ -333,29 +352,41 @@ class BlockEncoder:
         return self.assemble_pair(b1, b2, self.encode_device_pair(b1, b2))
 
     def assemble(self, block: ReadBlock, devout) -> EncodedBlock:
-        """Pass B of the quality stream, download, payload bytes."""
+        """Pass B of the quality stream (on the device, or on the host
+        when the grids are None), download, payload bytes."""
         perm, delta, len_s, sym, ctx, counts = devout
         cfg = self.cfg
         B, L = block.seq.shape
-        with stage("pass B"):
-            enc_q = qualities.encode_from_grids(sym, ctx, counts, B, L,
-                                                cfg.qual_context_order,
-                                                T_target=cfg.qual_T_target)
+        enc_q = None
+        if sym is not None:
+            with stage("pass B"):
+                enc_q = qualities.encode_from_grids(
+                    sym, ctx, counts, B, L, cfg.qual_context_order,
+                    T_target=cfg.qual_T_target)
         return self.assemble_encoded(block, perm, delta, len_s, enc_q)
 
     def assemble_encoded(self, block: ReadBlock, perm, delta, len_s,
-                         enc_q: qualities.EncodedQuals) -> EncodedBlock:
+                         enc_q: Optional[qualities.EncodedQuals]
+                         ) -> EncodedBlock:
         """Download and payload bytes, given the block's encoded quality
-        stream (the data-parallel path encodes a group's at once)."""
+        stream (the data-parallel path encodes a group's at once), or
+        None for host-placed qualities: the host codec encodes the
+        block's qualities through the sort permutation and the lossy map
+        (the reference's ``_assemble``)."""
         cfg = self.cfg
         B, L = block.seq.shape
-        with stage("quality payload"):
-            q_payload = qualities.payload(enc_q, backend=cfg.backend)
-
         with stage("delta D2H"):
             perm_np = perm.cpu().numpy()
             delta_np = download_delta(delta)
             len_np = len_s.cpu().numpy()
+        if enc_q is None:
+            with stage("quality encode (host)"):
+                enc_q = qualities_host.encode_host(
+                    block.qual, len_np, cfg.qual_context_order,
+                    T_target=cfg.qual_T_target, qual_map=self.qual_map_np,
+                    perm=perm_np)
+        with stage("quality payload"):
+            q_payload = qualities.payload(enc_q, backend=cfg.backend)
         with stage("seqs.payload"):
             # exceptions into the reordered frame (host; exceptions are
             # rare)

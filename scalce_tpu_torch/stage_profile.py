@@ -1,7 +1,11 @@
 """Where the time goes: per-stage wall times of one compress and one
 keep-order decompress through the port's drivers, and the device's busy
-share under ``torch.profiler``, for a single-end file, a pair (``-r``)
-and the single-end file lossy (``-p 30``).
+share under ``torch.profiler``, for a single-end file, a pair (``-r``),
+the single-end file lossy (``-p 30``) and the single-end file through
+``--data-parallel`` (one group per block on one card); and the
+data-parallel pass B's two functions, ``qualities.group_histogram`` and
+``qualities.group_encode``, each timed whole (what builds its kernel's
+inputs included) on a group of 4 blocks and of 1.
 
     python -m scalce_tpu_torch.stage_profile     # repo root, on the card
 
@@ -17,7 +21,9 @@ whose device events give the busy time (the union of their intervals)
 and the device time per kernel or copy.  Each decompress must give the
 input bytes back (lossy: the names and sequences, and qualities of the
 input's lengths).  The last line of the output is one JSON object with
-every number printed.
+every number printed.  The script uses only entry points that the
+port's earlier versions share, so it can also time a parent checkout:
+copy it there and run it from that checkout's root.
 """
 
 from __future__ import annotations
@@ -40,7 +46,8 @@ from scalce_tpu_torch.pipeline import driver
 
 #: the port's hand-written kernels, by their CUDA function names
 PORT_KERNELS = {"K1": "core_rank_kernel", "K2": "hist_ctx_kernel",
-                "K3": "rans_encode_kernel", "K4": "rans_decode_kernel"}
+                "K3": "rans_encode_kernel", "K4": "rans_decode_kernel",
+                "K5": "rans_encode_flat_kernel", "K6": "histogram_kernel"}
 
 #: the slice's configuration (chip_smoke.py's SLICE)
 SLICE = dict(block_reads=1 << 18, max_read_len=128, qual_T_target=2048,
@@ -48,7 +55,8 @@ SLICE = dict(block_reads=1 << 18, max_read_len=128, qual_T_target=2048,
              qual_context_order=1, dict_mode="hash", backend="gz", threads=1)
 
 #: the profiled cases: Config fields on top of SLICE
-CASES = {"single": {}, "paired": {"paired": True}, "lossy": {"lossy_pct": 30}}
+CASES = {"single": {}, "paired": {"paired": True}, "lossy": {"lossy_pct": 30},
+         "dp": {"data_parallel": True}}
 
 
 def _check(got: bytes, want: bytes, lossy: bool) -> None:
@@ -114,7 +122,7 @@ def _union_s(spans: List[tuple]) -> float:
 
 
 def _kind(name: str) -> str:
-    """Device event -> one of K1-K4, ``copies`` or ``torch kernels``."""
+    """Device event -> one of K1-K6, ``copies`` or ``torch kernels``."""
     for k, fn in PORT_KERNELS.items():
         if fn in name:
             return k
@@ -122,16 +130,17 @@ def _kind(name: str) -> str:
         else "torch kernels"
 
 
-def _profiled(tmp, case, srcs, datas, block_reads, device) -> Optional[Dict]:
-    """Device busy seconds (union of the device events' intervals), and
-    device seconds by kind and by event name (the 12 largest, names cut
-    to 80 characters), over one compress + decompress."""
+def device_busy(fn) -> Optional[Dict]:
+    """Run ``fn()`` under ``torch.profiler``: its wall seconds, the
+    device's busy seconds (the union of the device events' intervals),
+    and device seconds by kind and by event name (the 12 largest, names
+    cut to 80 characters); None if no device event was recorded."""
     from torch import profiler
     activities = [profiler.ProfilerActivity.CPU,
                   profiler.ProfilerActivity.CUDA]
     with profiler.profile(activities=activities, acc_events=True) as prof:
         t0 = time.perf_counter()
-        _run(tmp, case, srcs, datas, block_reads, device)
+        fn()
         wall = time.perf_counter() - t0
     spans, per_name, per_kind = [], {}, {}
     for ev in prof.events():
@@ -148,6 +157,54 @@ def _profiled(tmp, case, srcs, datas, block_reads, device) -> Optional[Dict]:
     return {"wall_s": wall, "busy_s": _union_s(spans),
             "device_events": len(spans), "by_kind_s": per_kind,
             "top_device_s": dict(top)}
+
+
+def _profiled(tmp, case, srcs, datas, block_reads, device) -> Optional[Dict]:
+    """:func:`device_busy` of one compress + decompress of ``case``."""
+    return device_busy(lambda: _run(tmp, case, srcs, datas, block_reads,
+                                    device))
+
+
+def dp_functions(path: str, device, iters: int = 10) -> Dict[str, float]:
+    """ms per call of ``qualities.group_histogram`` and
+    ``qualities.group_encode`` (CUDA events, ``iters`` calls after a
+    warm-up) on the grids that ``mesh.stage1`` leaves for the first 4
+    blocks of ``path`` and for its first block, under the slice's
+    Config."""
+    from scalce_tpu_torch.io import fastq
+    from scalce_tpu_torch.parallel import mesh
+    from scalce_tpu_torch.streams import qualities
+    cfg = Config(inputs=(path,), **SLICE)
+    blocks = fastq.iter_blocks(path, cfg.block_reads, cfg.max_read_len)
+    group = [next(blocks) for _ in range(4)]
+    blocks.close()
+    B, L = group[0].seq.shape
+    T = qualities.pick_T(B, L, cfg.qual_T_target)
+    order = cfg.qual_context_order
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize(device)
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        return start.elapsed_time(end) / iters
+
+    out = {}
+    for tag, share in (("4 blocks", group), ("1 block", group[:1])):
+        _, _, _, sym, ctx, counts = mesh.stage1(
+            mesh.upload_blocks(share, device), [b.n_reads for b in share],
+            cfg.core_k, cfg.dict_seed, order)
+        out[f"group_histogram, {tag}"] = ms(
+            lambda: qualities.group_histogram(sym, ctx, order))
+        out[f"group_encode, {tag}"] = ms(
+            lambda: qualities.group_encode(sym, ctx, counts, T, order))
+        del sym, ctx, counts
+    return out
 
 
 def _report(case: str, res: Dict, card: str) -> None:
@@ -217,6 +274,11 @@ def profile(device="cuda", reads: int = 1_148_576,
                 res["profiled"] = _profiled(*args)
             result["cases"][case] = res
             _report(case, res, card)
+        if device.type == "cuda":
+            result["dp_functions_ms"] = dp_functions(paths["main"][0],
+                                                     device)
+            for name, t in result["dp_functions_ms"].items():
+                print(f"{name}: {t:.3f} ms per call ({card})")
     print(json.dumps(result))
     return result
 

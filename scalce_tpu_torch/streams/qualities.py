@@ -9,7 +9,9 @@ and compacts the emitted words; :func:`decode_batch` decodes D blocks'
 quality grids in one launch (kernel K4).  A data-parallel group of D
 blocks takes the generic coder path instead: one histogram
 (:func:`group_histogram`, kernel K6) and one encode
-(:func:`group_encode`, kernel K5) over the stacked tables.  The
+(:func:`group_encode`, kernel K5), each on the group's grids as K2 wrote
+them and each block against its own table.  The host placement (the
+CLI's default) is ``streams/qualities_host.py``.  The
 container half — :class:`EncodedQuals`, :func:`payload`, :func:`parse`
 — is a copy of the reference's.
 
@@ -37,8 +39,10 @@ from scalce_tpu_torch import container, convert
 from scalce_tpu_torch.io.fastq import ragged_gather, ragged_scatter
 from scalce_tpu_torch.models import entropy
 from scalce_tpu_torch.ops import hist, rans
+from scalce_tpu_torch.ops.histogram import grid_histogram
 from scalce_tpu_torch.ops.rans_decode import decode_quals
 from scalce_tpu_torch.ops.rans_encode import encode_scan
+from scalce_tpu_torch.ops.rans_encode_flat import encode_grids
 
 N_SYMS = 94          # printable FASTQ quality range
 QUAL_OFFSET = 33
@@ -138,19 +142,27 @@ def sym_ctx_hist_plain(qual: torch.Tensor, lengths: torch.Tensor,
 
 def sym_ctx_hist(qual: torch.Tensor, lengths: torch.Tensor, order: int,
                  qual_map: Optional[torch.Tensor] = None,
-                 histogram: bool = True):
+                 histogram: bool = True, out=None):
     """Pass A of a block's uint8 ``[B, L]`` qualities, through the lossy
     map ``qual_map`` (uint8 ``[256]``; None: lossless): symbol grid and
-    context grid (u32 in int64 ``[B, L]``) and, with ``histogram``, their
-    (ctx, sym) histogram (i32 ``[n_contexts(order) * 94]``; else None).
-    CPU tensors take the plain version; CUDA tensors launch kernel K2
+    context grid (u32 in int64 ``[B, L]``, written into ``out = (sym,
+    ctx)`` when given) and, with ``histogram``, their (ctx, sym)
+    histogram (i32 ``[n_contexts(order) * 94]``; else None).  CPU
+    tensors take the plain version; CUDA tensors launch kernel K2
     (``csrc/hist_ctx.cu``) once."""
     if qual.device.type == "cpu":
-        return sym_ctx_hist_plain(qual, lengths, order, qual_map, histogram)
-    launch, out = prepare_pass_a(qual, lengths, order, qual_map, histogram)
+        sym, ctx, counts = sym_ctx_hist_plain(qual, lengths, order,
+                                              qual_map, histogram)
+        if out is None:
+            return sym, ctx, counts
+        out[0].copy_(sym)
+        out[1].copy_(ctx)
+        return out[0], out[1], counts
+    launch, result = prepare_pass_a(qual, lengths, order, qual_map,
+                                    histogram, out)
     launch()
     sym_ctx_hist.launches += 1
-    return out
+    return result
 
 
 sym_ctx_hist.launches = 0
@@ -158,34 +170,23 @@ sym_ctx_hist.launches = 0
 
 def prepare_pass_a(qual: torch.Tensor, lengths: torch.Tensor, order: int,
                    qual_map: Optional[torch.Tensor] = None,
-                   histogram: bool = True):
+                   histogram: bool = True, out=None):
     """:func:`sym_ctx_hist`'s CUDA path up to the launch (``ops/hist.py``
     ``prepare``): ``(launch, (sym, ctx, counts))``."""
     R, PB, _ = _slab_spec(order)
-    return hist.prepare(qual, lengths, order, R, PB, qual_map, histogram)
-
-
-def stacked_ctx(ctx: torch.Tensor, order: int) -> torch.Tensor:
-    """Context grids of D blocks ``[D, B, L]`` -> rows of the stacked
-    ``[D*C, N_SYMS]`` table: block d's context c is row ``d*C + c``."""
-    D = ctx.shape[0]
-    off = n_contexts(order) * torch.arange(D, dtype=torch.int64,
-                                           device=ctx.device)
-    return ctx + off.reshape(D, *([1] * (ctx.dim() - 1)))
+    return hist.prepare(qual, lengths, order, R, PB, qual_map, histogram,
+                        out)
 
 
 def group_histogram(sym: torch.Tensor, ctx: torch.Tensor, order: int
                     ) -> torch.Tensor:
     """(ctx, sym) histograms of D blocks' grids ``[D, B, L]`` -> i32
-    ``[D, C*N_SYMS]`` in ONE launch of kernel K6: the reference's generic
-    ``_ctx_histogram`` branch (``rans.context_histogram``) over the
-    stacked table."""
+    ``[D, C*N_SYMS]`` in ONE launch of kernel K6 on the grids as they
+    are: the reference's generic ``_ctx_histogram`` branch
+    (``rans.context_histogram``) over the stacked table."""
     D = sym.shape[0]
     C = n_contexts(order)
-    counts = rans.context_histogram(sym.reshape(-1),
-                                    stacked_ctx(ctx, order).reshape(-1),
-                                    D * C, N_SYMS)
-    return counts.reshape(D, C * N_SYMS)
+    return grid_histogram(sym, ctx, C, N_SYMS).reshape(D, C * N_SYMS)
 
 
 @dataclasses.dataclass
@@ -212,29 +213,19 @@ def encode_from_grids(sym: torch.Tensor, ctx: torch.Tensor,
     return finish_encoded(freq, states, packed, wcounts, B, L, T, order)
 
 
-def _encode_pass(sym: torch.Tensor, ctx: torch.Tensor, freq: torch.Tensor,
-                 cum: torch.Tensor, T: int):
-    """Generic pass B: ``rans.rans_encode`` (gather + kernel K5) over
-    flat tables, then compaction -> ``(states [N], packed [N, T],
-    counts [N])`` (the reference's ``_encode_pass``)."""
-    states, words, emits = rans.rans_encode(
-        sym.reshape(-1), ctx.reshape(-1), freq.reshape(-1), cum.reshape(-1),
-        N_SYMS, T)
-    packed, counts = rans.compact_emissions(words, emits)
-    return states, packed, counts
-
-
 def group_encode(sym: torch.Tensor, ctx: torch.Tensor, counts: torch.Tensor,
                  T: int, order: int):
     """Pass B of D blocks' grids ``[D, B, L]`` with their histograms
     ``[D, C*N_SYMS]``: per-block tables, then ONE K5 launch over the
-    group's ``D*N`` lanes (each block's lanes read its own table rows).
-    Returns ``(freq [D, C, N_SYMS], states [D, N], packed [D, N, T],
-    wcounts [D, N])``, each block's equal to its single-block pass B."""
+    group's ``D*N`` lanes on the grids as they are (each block's lanes
+    read its own table), then the compaction (the reference's
+    ``_encode_pass`` over the stacked tables).  Returns ``(freq [D, C,
+    N_SYMS], states [D, N], packed [D, N, T], wcounts [D, N])``, each
+    block's equal to its single-block pass B."""
     D, B, L = sym.shape
     freq, cum = entropy.device_normalize(counts, n_contexts(order), N_SYMS)
-    states, packed, wcounts = _encode_pass(sym, stacked_ctx(ctx, order),
-                                           freq, cum, T)
+    states, words, emits = encode_grids(sym, ctx, freq, cum, T)
+    packed, wcounts = rans.compact_emissions(words, emits)
     N = B * L // T
     return (freq, states.reshape(D, N), packed.reshape(D, N, T),
             wcounts.reshape(D, N))

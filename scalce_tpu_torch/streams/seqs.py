@@ -564,7 +564,7 @@ def parse(blob: bytes, B: int, L: int
     """Payload -> (codes u8 [B, L] (canonical orientation), lengths i32
     [B], n_reads, exc_pos, exc_byte, perm, rc bool [B]), by the serial
     host delta walk.  Reads every short-read layout the reference
-    writes; long-read (shv4) blocks are ROADMAP Queue 1 item 11."""
+    writes; long-read (shv4) blocks are ROADMAP Queue 1 item 11c."""
     a = container.unpack_arrays(blob)
     n = int(a["n_reads"][0])
     n_lits = int(a["n_lits"][0])
@@ -578,7 +578,7 @@ def parse(blob: bytes, B: int, L: int
         a["perm"] = _bitunpack_u32(pk, n, k)
     if "shifts" not in a and ("shv4_mode" in a or "shv4_planes" in a):
         raise NotImplementedError(
-            "long-read (v6/v7) blocks: ROADMAP.md Queue 1 item 11")
+            "long-read (v6/v7) blocks: ROADMAP.md Queue 1 item 11c")
     if "shifts" not in a:
         if int(a["shv_mode"][0]) if "shv_mode" in a else 0:
             sb = _decode_mask_rans(a, 2 * n, prefix="shv")

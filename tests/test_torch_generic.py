@@ -1,8 +1,8 @@
 """scalce_tpu_torch's generic coder API — K6 (``ops/histogram.py``,
 ``rans.context_histogram``) and K5 (``ops/rans_encode_flat.py``,
-``rans.rans_encode``) — against scalce_tpu's Pallas kernels in interpret
-mode and its XLA paths, on the same numpy inputs.  Every comparison is
-exact."""
+``rans.rans_encode``), one block or D blocks against their own tables —
+against scalce_tpu's Pallas kernels in interpret mode and its XLA paths,
+on the same numpy inputs.  Every comparison is exact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +13,7 @@ from scalce_tpu.models import entropy as ref_entropy
 from scalce_tpu.ops import hist_pallas, rans_pallas
 from scalce_tpu.ops import rans as ref_rans
 from scalce_tpu_torch.ops import histogram, rans
-from scalce_tpu_torch.ops.rans_encode_flat import (encode_scan_flat,
+from scalce_tpu_torch.ops.rans_encode_flat import (encode_grids,
                                                    encode_scan_flat_plain)
 
 # xdist runs test files side by side on the CPU: one intra-op thread
@@ -84,7 +84,8 @@ def test_encode_scan_flat_matches_pallas_and_xla(T, N, monkeypatch):
     np.testing.assert_array_equal(
         f_all.numpy(), np.asarray(flut[idx].reshape(N, T).T))
     for got in (encode_scan_flat_plain(f_all, c_all),
-                encode_scan_flat(f_all, c_all),
+                encode_grids(s[None], c[None], f_t.reshape(1, n_ctx, n_syms),
+                             c_t.reshape(1, n_ctx, n_syms), T),
                 rans.rans_encode(s, c, f_t, c_t, n_syms, T)):
         states, words, emits = (g.numpy() for g in got)
         for want in (want_x, want_p):
@@ -92,3 +93,37 @@ def test_encode_scan_flat_matches_pallas_and_xla(T, N, monkeypatch):
             np.testing.assert_array_equal(emits, np.asarray(want[2]))
             e = np.asarray(want[2])
             np.testing.assert_array_equal(words[e], np.asarray(want[1])[e])
+
+
+@pytest.mark.parametrize("D,T", [(1, 128), (3, 256), (4, 64)])
+def test_grid_entries_match_the_reference_over_stacked_tables(D, T):
+    """K6's grid_histogram and K5's encode_grids over D blocks' grids,
+    each block against its own table, equal the reference's
+    context_histogram and rans_encode over the stacked tables (the
+    reference's generic data-parallel branch)."""
+    rng = np.random.default_rng(D * T)
+    n_ctx, n_syms, S = 12, 94, 2 * T
+    sym = rng.integers(0, n_syms, (D, S))
+    ctx = rng.integers(0, n_ctx, (D, S))
+    sym[ctx == 0] = 0
+    stacked = ctx + n_ctx * np.arange(D)[:, None]
+    want_h = np.asarray(ref_rans.context_histogram(
+        jnp.asarray(sym.reshape(-1), jnp.uint32),
+        jnp.asarray(stacked.reshape(-1), jnp.uint32), D * n_ctx, n_syms))
+    got_h = histogram.grid_histogram(torch.from_numpy(sym),
+                                     torch.from_numpy(ctx), n_ctx, n_syms)
+    np.testing.assert_array_equal(got_h.numpy(), want_h)
+    freq, cum = ref_entropy.device_normalize(
+        jnp.asarray(want_h, jnp.int32).reshape(D * n_ctx, n_syms)
+        .reshape(-1), D * n_ctx, n_syms)
+    want = ref_rans.rans_encode(jnp.asarray(sym.reshape(-1), jnp.uint32),
+                                jnp.asarray(stacked.reshape(-1), jnp.uint32),
+                                freq.reshape(-1), cum.reshape(-1), n_syms, T)
+    tables = [torch.from_numpy(np.asarray(t).astype(np.int64)).reshape(
+        D, n_ctx, n_syms) for t in (freq, cum)]
+    states, words, emits = encode_grids(torch.from_numpy(sym),
+                                        torch.from_numpy(ctx), *tables, T)
+    np.testing.assert_array_equal(states.numpy(), np.asarray(want[0]))
+    e = np.asarray(want[2])
+    np.testing.assert_array_equal(emits.numpy(), e)
+    np.testing.assert_array_equal(words.numpy()[e], np.asarray(want[1])[e])

@@ -194,8 +194,10 @@ def test_reciprocal_divide_is_exact(cuda):
 
 
 @pytest.mark.parametrize("S,n_cells", [(1, 3), (777, 94), (100_003, 71_534),
-                                       (3_000_001, 286_136)])
+                                       (3_000_001, 286_136), (200_000, 95)])
 def test_histogram_kernel(cuda, S, n_cells):
+    """The flat entry on int64 indices: shared-memory tables up to
+    102,400 cells, global atomics above."""
     rng = np.random.default_rng(S)
     idx = rng.integers(0, n_cells, S)
     idx[: S // 4] = 0                     # one hot cell, as padding is
@@ -207,8 +209,11 @@ def test_histogram_kernel(cuda, S, n_cells):
     assert int(got.sum()) == S
 
 
-@pytest.mark.parametrize("T,N", [(1, 1), (64, 1000), (2048, 333)])
+@pytest.mark.parametrize("T,N", [(1, 1), (64, 1000), (2048, 333), (7, 50)])
 def test_rans_encode_flat_kernel(cuda, T, N):
+    """K5 on one block of random cells (a full-mass row, f = 4096), even
+    and odd T: ``rans.rans_encode`` on the card equals the Pallas
+    contract on the gathered (f, cum)."""
     rng = np.random.default_rng(T + N)
     n_ctx, n_syms = 20, 94
     sym = rng.integers(0, n_syms, T * N)
@@ -218,11 +223,83 @@ def test_rans_encode_flat_kernel(cuda, T, N):
     np.add.at(counts, (ctx, sym), 1)
     freq, cum = entropy.device_normalize(torch.from_numpy(counts.reshape(-1)),
                                          n_ctx, n_syms)
-    f_all, c_all = rans.gather_tables(
-        torch.from_numpy(sym).to(cuda), torch.from_numpy(ctx).to(cuda),
-        freq.reshape(-1).to(cuda), cum.reshape(-1).to(cuda), n_syms, T)
-    _equal(rans_encode_flat.encode_scan_flat(f_all, c_all),
-           rans_encode_flat.encode_scan_flat_plain(f_all, c_all))
+    args = (torch.from_numpy(sym).to(cuda), torch.from_numpy(ctx).to(cuda),
+            freq.reshape(-1).to(cuda), cum.reshape(-1).to(cuda), n_syms, T)
+    _equal(rans.rans_encode(*args),
+           rans_encode_flat.encode_scan_flat_plain(*rans.gather_tables(
+               *args)))
+
+
+def _group_grids(cuda, order, D, B, L, seed):
+    """D blocks' grids from ragged qualities (K2 on the card), stacked as
+    a data-parallel device's share, with their histograms."""
+    grids = [_grids(cuda, order, B, L, seed + d)[0] for d in range(D)]
+    sym = torch.stack([g[0] for g in grids])
+    ctx = torch.stack([g[1] for g in grids])
+    return sym, ctx, torch.stack([g[2] for g in grids])
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("D", [1, 4])
+@pytest.mark.parametrize("B,L", [(300, 128), (257, 160), (64, 101)])
+def test_grid_histogram_kernel(cuda, order, D, B, L):
+    """K6 from D blocks' grids (shared-memory tables at order 1, global
+    at orders 2 and 3) against its plain version and against each
+    block's K2 histogram."""
+    sym, ctx, counts = _group_grids(cuda, order, D, B, L, 7 * order + D)
+    C = qualities.n_contexts(order)
+    got = histogram.grid_histogram(sym, ctx, C, qualities.N_SYMS)
+    assert got.dtype == torch.int32
+    _equal((got,), (histogram.grid_histogram_plain(sym, ctx, C,
+                                                   qualities.N_SYMS),))
+    _equal((got.reshape(D, -1),), (counts,))
+    assert torch.equal(qualities.group_histogram(sym, ctx, order),
+                       counts)
+
+
+@pytest.mark.parametrize("n_ctx", [761, 3041])
+def test_grid_histogram_kernel_hot_cell(cuda, n_ctx):
+    """Every cell of two 2^23-cell blocks in one non-padding cell, but a
+    stripe of padding and of another cell: 137 tiles per block, so some
+    CTAs count more than 65,535 of the hot cell between launches; its
+    count must be exact (u16 counters are flushed per tile)."""
+    S, n_syms = 1 << 23, 94
+    sym = torch.full((2, S), 7, dtype=torch.int64, device=cuda)
+    ctx = torch.full((2, S), 5, dtype=torch.int64, device=cuda)
+    ctx[:, ::97] = 0
+    sym[:, ::97] = 0
+    ctx[1, 1::3] = 6
+    got = histogram.grid_histogram(sym, ctx, n_ctx, n_syms)
+    want = histogram.grid_histogram_plain(sym, ctx, n_ctx, n_syms)
+    _equal((got,), (want,))
+    assert int(want[5 * n_syms + 7]) > 8 * 65535
+    assert int(got.sum()) == 2 * S
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("D", [1, 4])
+@pytest.mark.parametrize("B,L,T_target", [(512, 128, 2048), (300, 160, 512),
+                                          (64, 101, 64)])
+def test_encode_grids_kernel(cuda, order, D, B, L, T_target):
+    """K5 from D blocks' grids against their own tables (the
+    data-parallel pass B) against its plain version; L = 101 with T = 101
+    takes the kernel's single-cell loads."""
+    sym, ctx, counts = _group_grids(cuda, order, D, B, L, 3 * order + D)
+    C = qualities.n_contexts(order)
+    freq, cum = entropy.device_normalize(counts, C, qualities.N_SYMS)
+    T = qualities.pick_T(B, L, T_target)
+    _equal(rans_encode_flat.encode_grids(sym, ctx, freq, cum, T),
+           rans_encode_flat.encode_grids_plain(sym, ctx, freq, cum, T))
+    # and each block's stream is its single-block pass B's (K3)
+    got = qualities.group_encode(sym, ctx, counts, T, order)
+    for d in range(D):
+        one = qualities.encode_from_grids(sym[d], ctx[d], counts[d], B, L,
+                                          order, T_target)
+        enc = qualities.finish_encoded(got[0][d], got[1][d], got[2][d],
+                                       got[3][d], B, L, T, order)
+        for field in ("freq", "states", "counts", "words"):
+            np.testing.assert_array_equal(getattr(enc, field),
+                                          getattr(one, field))
 
 
 def test_card_data_parallel_matches_cpu(cuda, tmp_path):

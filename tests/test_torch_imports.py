@@ -240,6 +240,29 @@ def test_fastq_parse_render_names_match_reference(tmp_path, crlf):
         ref_fastq.probe_max_read_len([path])
 
 
+#: the port's copies of reference modules -> the file each names
+COPIES = {"config.py": "config.py", "container.py": "container.py",
+          "version.py": "version.py", "cli_args.py": "cli.py",
+          "io/__init__.py": "io/__init__.py", "io/fastq.py": "io/fastq.py",
+          "io/backend.py": "io/backend.py",
+          "native/__init__.py": "native/__init__.py",
+          "streams/names.py": "streams/names.py",
+          "streams/qualities_host.py": "streams/qualities.py",
+          "utils/__init__.py": "utils/__init__.py",
+          "utils/synth.py": "utils/synth.py"}
+
+
+@pytest.mark.parametrize("copy", sorted(COPIES))
+def test_copy_names_its_original_in_its_header(copy):
+    """The first line of each copied module names the reference file it
+    copies, and that file exists."""
+    with open(os.path.join(REPO, "scalce_tpu_torch", copy)) as f:
+        head = f.readline()
+    original = "scalce_tpu/" + COPIES[copy]
+    assert head.startswith("# Copy of ") and original in head, head
+    assert os.path.exists(os.path.join(REPO, original))
+
+
 def test_native_library_is_the_ports_own():
     assert native.AVAILABLE
     assert os.path.dirname(native._SO) == os.path.join(
@@ -353,6 +376,41 @@ def _native_cases():
                        rng.integers(32, 127, 4000)).astype(np.uint8)
         return (lib.line_starts(buf),)
 
+    def _quals(rng, B=64, L=96):
+        walk = np.clip(np.cumsum(rng.integers(-2, 3, (B, L)), axis=1) + 38,
+                       2, 80) + 33
+        lengths = rng.integers(0, L + 1, B)
+        perm = rng.permutation(B).astype(np.int64)
+        qmap = np.minimum(np.arange(256) // 3 * 3, 255).astype(np.uint8)
+        return walk.astype(np.uint8), lengths, perm, qmap
+
+    def qual_grids(lib, rng):
+        qual, lengths, perm, qmap = _quals(rng)
+        out = []
+        for order in (1, 2, 3):
+            out += lib.qual_sym_ctx_hist(qual, lengths, 96, order,
+                                         [761, 1401, 3041][order - 1])
+            out.append(lib.qual_hist_one(qual, lengths, 96, order,
+                                         [761, 1401, 3041][order - 1],
+                                         perm, qmap))
+        return (*out, *lib.qual_hist3(qual, lengths, 96, perm, qmap),
+                lib.permute_rows_u8(qual, perm))
+
+    def qual_codec(lib, rng):
+        """The grid-free encode and both decodes, through the tables of
+        the block's own histogram (order 2)."""
+        qual, lengths, perm, qmap = _quals(rng)
+        counts = lib.qual_hist_one(qual, lengths, 96, 2, 1401, perm, qmap)
+        freq, cum = entropy.host_normalize_np(counts, 1401, 94)
+        states, wc, words = lib.rans_encode_qual(qual, lengths[perm], freq,
+                                                 cum, 384, 2, perm, qmap)
+        back2 = lib.rans_decode_lanes2(states, words, wc, freq, cum,
+                                       lengths[perm], 64, 96, 384, 2)
+        back = lib.rans_decode_lanes(states, words, wc,
+                                     entropy.build_decode_lut(freq, cum),
+                                     lengths[perm], 64, 96, 384, 2)
+        return states, wc, words, back2, back
+
     return {"ragged_gather_u8": ragged_gather,
             "ragged_scatter_u8": ragged_scatter,
             "bitpack_u32/bitunpack_u32": bitpack,
@@ -363,7 +421,11 @@ def _native_cases():
             "mask_hist/rans_encode_mask/rans_decode_mask": mask,
             "rans_encode_lanes": lanes, "mask_tail_check": tail_check,
             "rc_flip_rows": rc_flip, "render_ints_i64": ints,
-            "line_starts": line_starts}
+            "line_starts": line_starts,
+            "qual_sym_ctx_hist/qual_hist_one/qual_hist3/permute_rows_u8":
+            qual_grids,
+            "rans_encode_qual/rans_decode_lanes2/rans_decode_lanes":
+            qual_codec}
 
 
 @pytest.mark.parametrize("name", sorted(_native_cases()))

@@ -40,12 +40,17 @@ def test_stage_profile_cpu(capsys):
     result = stage_profile.profile("cpu", reads=1500, block_reads=1024)
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
         == result
-    extra = {"single": set(), "lossy": {"lossy preamble"},
-             "paired": {"stage A (mate 2)", "stage B (mate 2)"}}
-    assert set(result["cases"]) == set(extra)
+    compress = {"single": COMPRESS_STAGES,
+                "lossy": COMPRESS_STAGES | {"lossy preamble"},
+                "paired": COMPRESS_STAGES | {"stage A (mate 2)",
+                                             "stage B (mate 2)"},
+                "dp": COMPRESS_STAGES - {"stage A", "stage B"}
+                | {"stage A+B"}}
+    assert set(result["cases"]) == set(compress)
+    assert "dp_functions_ms" not in result       # timed on a card only
     for case, res in result["cases"].items():
         assert res["input_bytes"] > 0 and "profiled" not in res
-        for name, want in (("compress", COMPRESS_STAGES | extra[case]),
+        for name, want in (("compress", compress[case]),
                            ("decompress", DECOMPRESS_STAGES)):
             run = res["staged"][name]
             assert set(run["stages_s"]) == want
@@ -90,6 +95,8 @@ def test_union_of_device_spans(spans, want):
     ("hist_ctx_kernel(unsigned int const*, ...)", "K2"),
     ("rans_encode_kernel(unsigned int const*, ...)", "K3"),
     ("rans_decode_kernel(unsigned int const*, ...)", "K4"),
+    ("void (anonymous namespace)::rans_encode_flat_kernel<true>(...)", "K5"),
+    ("void (anonymous namespace)::histogram_kernel<true, true>(...)", "K6"),
     ("Memcpy DtoH (Device -> Pageable)", "copies"),
     ("Memset (Device)", "copies"),
     ("void at::native::vectorized_gather_kernel<16, long>(...)",

@@ -156,6 +156,7 @@ def test_cli_round_trip_imports_no_jax(tmp_path):
     dict(dict_mode="lut"), dict(core_on_device=None),
     dict(qual_on_device=False, delta_on_device=False, core_on_device=False),
     dict(data_parallel=True, n_hosts=2), dict(n_hosts=2),
+    dict(qual_on_device=False, delta_on_device=False),
     dict(max_read_len=32768, block_reads=256, core_on_device=None,
          delta_on_device=False, qual_on_device=False)])
 def test_configs_outside_the_slice_raise(change):
