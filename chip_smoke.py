@@ -51,16 +51,26 @@ Phases (the first failure exits non-zero; no phase is caught):
      ragged lossy pair with N bases gives the same triplets on the card
      and on the CPU
   9. the bare command (``scalce_tpu_torch.cli.main`` with the reference
-     CLI's defaults: qualities coded on the host, each block at the
-     order its trial picks) on the main file: K1 and none of K2-K6 run,
-     the card's triplet equals the CPU's, and the bare ``-d`` (host
-     quality decode, no K4) gives the input back
+     CLI's defaults but ``-T 1``: qualities coded on the host, each block
+     at the order its trial picks) on the main file: K1 and none of
+     K2-K6 run, the card's triplet equals the CPU's, and the bare ``-d``
+     (host quality decode, no K4) gives the input back
+ 10. pipelined: phases 4 and 6-9 (which run at ``-T 1``) once more at
+     ``-T 4``, the CLI's default: the full-device compress and its
+     keep-order ``--qual-device`` decompress, the bare command and its
+     host decompress, ``--data-parallel``, the pair and ``-p 30``; every
+     triplet equals its ``-T 1`` triplet, each decompress gives the input
+     back, every kernel launches as often as at ``-T 1``; walls and the
+     peak device memory beside ``-T 1``'s, the main file at Config()'s
+     default threads (cores + 2), and the ``-T 4`` compress's device busy
+     time with its copies split into pageable and page-locked
 
 The line before the last is the card's name and power limit; the one
 before that is a JSON object with one entry per kernel (``launches``:
 phase 4's count for K1-K4, the phase-6 --data-parallel driver's for K5
 and K6, and their ``sharded_launches`` the ShardedEncoder's; phases 7
-to 9 check their own counts; ``ms`` the wrapper, ``kernel_ms`` the
+to 9 check their own counts; ``launches_T4`` phase 10's counts of the
+same runs at ``-T 4``; ``ms`` the wrapper, ``kernel_ms`` the
 launch alone; K2's ``lut`` and ``grids_only``, K4's ``d1``, K5's and
 K6's ``one_block`` and K6's ``flat`` the other cases above); the last
 line is
@@ -256,7 +266,7 @@ def check_kernels(blocks, dev, kernels) -> dict:
     cfg = Config(inputs=("-",), **SLICE)
     enc = encode.BlockEncoder(cfg, dev)
     block = blocks[0]
-    pre = enc.upload(block)
+    pre = enc.upload(block).wait()
     k, seed = cfg.core_k, cfg.dict_seed
     B, L = block.seq.shape
     cases = []
@@ -394,14 +404,29 @@ def check_kernels(blocks, dev, kernels) -> dict:
 
 
 def compress_file(src: str, out: str, device: str, **change) -> float:
+    """Wall seconds of one compress (on the card: from a reset of the
+    peak device memory to the card's idle)."""
     import scalce_tpu_torch
     from scalce_tpu_torch.config import Config
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     scalce_tpu_torch.compress(Config(inputs=(src,), output=out,
                                      **{**SLICE, **change}), device)
     if device != "cpu":
         torch.cuda.synchronize()
     return time.monotonic() - t0
+
+
+def record(runs: dict, name: str, kernels: dict, wall: float,
+           prefix: str) -> None:
+    """Keep a -T 1 run for phase 10: its wall, every kernel's launches
+    since the last reset, the peak device memory since the last reset,
+    its triplet's prefix."""
+    runs[name] = {"wall_s": wall, "launches": counts(kernels, kernels),
+                  "peak_bytes": torch.cuda.max_memory_allocated(),
+                  "prefix": prefix}
 
 
 def triplet(prefix: str) -> list:
@@ -414,7 +439,7 @@ def triplet(prefix: str) -> list:
 
 
 def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
-                        t_single: float) -> dict:
+                        t_single: float, t1: dict) -> dict:
     """Phase 6: the data-parallel path on the main file; returns the launch
     counts of the ShardedEncoder run and of the --data-parallel driver's."""
     import scalce_tpu_torch
@@ -446,12 +471,14 @@ def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
     n_blocks = len(blocks)
     del blocks, got, want
     reset(kernels)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     scalce_tpu_torch.compress(Config(inputs=(src,), output=os.path.join(
         tmp, "dp"), data_parallel=True, **SLICE), "cuda")
     torch.cuda.synchronize()
     t_dp = time.monotonic() - t0
     driver = counts(kernels, kernels)
+    record(t1, "dp", kernels, t_dp, os.path.join(tmp, "dp"))
     if triplet(os.path.join(tmp, "dp")) != triplet(os.path.join(tmp,
                                                                  "main")):
         raise AssertionError("--data-parallel triplet != phase 4's")
@@ -486,7 +513,7 @@ def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
 
 
 def check_cli_defaults(src: str, data: bytes, tmp: str, kernels: dict,
-                       smi: str) -> None:
+                       smi: str, t1: dict) -> None:
     """Phase 9: the bare command (the reference CLI's defaults: qualities
     coded on the host, each block at the order its trial picks) on the
     main file, on the card and on the CPU; the card's triplet decompressed
@@ -494,16 +521,19 @@ def check_cli_defaults(src: str, data: bytes, tmp: str, kernels: dict,
     from scalce_tpu_torch import cli, container
     from scalce_tpu_torch.streams import qualities
     reset(kernels)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    cli.main([src, "-o", os.path.join(tmp, "bare")])
+    cli.main([src, "-o", os.path.join(tmp, "bare"), "-T", "1"])
     torch.cuda.synchronize()
     t_c = time.monotonic() - t0
     launches = counts(kernels, kernels)
+    record(t1, "bare", kernels, t_c, os.path.join(tmp, "bare"))
     t0 = time.monotonic()
     cli.main(["-d", os.path.join(tmp, "bare.00.scalcen"), "-o",
-              os.path.join(tmp, "bare_out"), "--keep-order"])
+              os.path.join(tmp, "bare_out"), "--keep-order", "-T", "1"])
     t_d = time.monotonic() - t0
     decode = counts(kernels, kernels)
+    t1["bare decompress"] = {"wall_s": t_d, "launches": decode}
     with open(os.path.join(tmp, "bare_out.fastq"), "rb") as f:
         if f.read() != data:
             raise AssertionError("bare decompress != input")
@@ -514,7 +544,8 @@ def check_cli_defaults(src: str, data: bytes, tmp: str, kernels: dict,
                              f"qualities on the host: compress {launches}, "
                              f"decompress {decode}")
     t0 = time.monotonic()
-    cli.main([src, "-o", os.path.join(tmp, "bare_cpu"), "--device", "cpu"])
+    cli.main([src, "-o", os.path.join(tmp, "bare_cpu"), "--device", "cpu",
+              "-T", "1"])
     t_cpu = time.monotonic() - t0
     gpu = triplet(os.path.join(tmp, "bare"))
     if gpu != triplet(os.path.join(tmp, "bare_cpu")):
@@ -532,7 +563,7 @@ def check_cli_defaults(src: str, data: bytes, tmp: str, kernels: dict,
         f"{smi}")
 
 
-def check_paired(tmp: str, kernels: dict, smi: str) -> None:
+def check_paired(tmp: str, kernels: dict, smi: str, t1: dict) -> None:
     """Phase 7: paired-end compress, keep-order decompress and the
     --data-parallel pair on the card."""
     import scalce_tpu_torch
@@ -547,16 +578,18 @@ def check_paired(tmp: str, kernels: dict, smi: str) -> None:
     cfg = dict(inputs=paths, paired=True, **SLICE)
 
     reset(kernels)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     scalce_tpu_torch.compress(Config(output=os.path.join(tmp, "pair"),
                                      **cfg), "cuda")
     torch.cuda.synchronize()
     t_c = time.monotonic() - t0
+    record(t1, "pair", kernels, t_c, os.path.join(tmp, "pair"))
     t0 = time.monotonic()
     scalce_tpu_torch.decompress(Config(
         mode="decompress", inputs=(os.path.join(tmp, "pair.00_1.scalcen"),),
         output=os.path.join(tmp, "pair_out"), keep_order=True,
-        qual_on_device=True), "cuda")
+        qual_on_device=True, threads=1), "cuda")
     t_d = time.monotonic() - t0
     launches = counts(kernels, ("K1", "K2", "K3", "K4"))
     for m, data in zip((1, 2), mates):
@@ -596,7 +629,7 @@ def check_paired(tmp: str, kernels: dict, smi: str) -> None:
 
 
 def check_lossy(src: str, data: bytes, lossless_bytes: int, tmp: str,
-                kernels: dict, smi: str) -> None:
+                kernels: dict, smi: str, t1: dict) -> None:
     """Phase 8: lossy compress of the main file on the card, its keep-order
     round trip, the --data-parallel lossy triplet, the all-reduce, and a
     ragged lossy pair on the card and the CPU."""
@@ -612,11 +645,12 @@ def check_lossy(src: str, data: bytes, lossless_bytes: int, tmp: str,
     reset(kernels)
     t_c = compress_file(src, os.path.join(tmp, "lossy"), "cuda",
                         lossy_pct=LOSSY_PCT)
+    record(t1, "lossy", kernels, t_c, os.path.join(tmp, "lossy"))
     t0 = time.monotonic()
     scalce_tpu_torch.decompress(Config(
         mode="decompress", inputs=(os.path.join(tmp, "lossy.00.scalcen"),),
         output=os.path.join(tmp, "lossy_out"), keep_order=True,
-        qual_on_device=True), "cuda")
+        qual_on_device=True, threads=1), "cuda")
     t_d = time.monotonic() - t0
     launches = counts(kernels, ("K1", "K2", "K3", "K4"))
     if not all(launches.values()):
@@ -716,6 +750,106 @@ def check_lossy(src: str, data: bytes, lossless_bytes: int, tmp: str,
         f"{t_dp:.3f} s = {mb / t_dp:.2f} MB/s | {smi}")
 
 
+def check_pipelined(src: str, data: bytes, tmp: str, kernels: dict,
+                    smi: str, t1: dict) -> dict:
+    """Phase 10: the -T 1 runs of phases 4 and 6-9 once more at -T 4 (the
+    CLI's default): the full-device compress of the main file and its
+    keep-order --qual-device decompress, the bare command and its host
+    decompress, --data-parallel, the pair and -p 30.  Each triplet must
+    equal its -T 1 triplet, each decompress must give the input back,
+    and every kernel must launch as often as at -T 1.  Then the main file
+    at Config()'s default threads (cores + 2), and the -T 4 compress once
+    more under torch.profiler.  Prints walls and peak device memory
+    beside -T 1's; returns the -T 4 runs."""
+    import scalce_tpu_torch
+    from scalce_tpu_torch import cli
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.stage_profile import device_busy
+    mates = tuple(os.path.join(tmp, f"mate{m}.fastq") for m in (1, 2))
+    at4 = {**SLICE, "threads": 4}
+
+    def compress(out, **change):
+        scalce_tpu_torch.compress(Config(inputs=(src,), output=out,
+                                         **{**at4, **change}), "cuda")
+
+    def keep_order_decompress(name, argv):
+        cli.main(["-d", os.path.join(tmp, name + ".00.scalcen"), "-o",
+                  os.path.join(tmp, name + "_out"), "--keep-order", "-T",
+                  "4", *argv])
+        with open(os.path.join(tmp, name + "_out.fastq"), "rb") as f:
+            if f.read() != data:
+                raise AssertionError(f"-T 4 decompress of {name} != input")
+
+    runs = {"main": (compress, ["--qual-device"]),
+            "bare": (lambda out: cli.main([src, "-o", out, "-T", "4"]), []),
+            "dp": (lambda out: compress(out, data_parallel=True), None),
+            "pair": (lambda out: scalce_tpu_torch.compress(Config(
+                inputs=mates, paired=True, output=out, **at4), "cuda"), None),
+            "lossy": (lambda out: compress(out, lossy_pct=LOSSY_PCT), None)}
+    t4 = {}
+    for name, (run, decompress_argv) in runs.items():
+        out = os.path.join(tmp, name + "_T4")
+        reset(kernels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        run(out)
+        torch.cuda.synchronize()
+        record(t4, name, kernels, time.monotonic() - t0, out)
+        if triplet(out) != triplet(t1[name]["prefix"]):
+            raise AssertionError(f"-T 4 {name} triplet != -T 1's")
+        if t4[name]["launches"] != t1[name]["launches"]:
+            raise AssertionError(f"-T 4 {name} launches {t4[name]['launches']}"
+                                 f" != -T 1's {t1[name]['launches']}")
+        if decompress_argv is not None:
+            t0 = time.monotonic()
+            keep_order_decompress(name + "_T4", decompress_argv)
+            t4[name + " decompress"] = {"wall_s": time.monotonic() - t0,
+                                        "launches": counts(kernels, kernels)}
+            if t4[name + " decompress"]["launches"] != \
+                    t1[name + " decompress"]["launches"]:
+                raise AssertionError(f"-T 4 {name} decompress launches != "
+                                     f"-T 1's")
+    for name in runs:
+        peaks = " -> ".join(f"{r[name]['peak_bytes'] / 2**30:.3f}"
+                            for r in (t1, t4))
+        say(f"{name} compress: -T 1 {t1[name]['wall_s']:.3f} s, -T 4 "
+            f"{t4[name]['wall_s']:.3f} s; peak device memory {peaks} GiB; "
+            f"equal triplets and launches {t4[name]['launches']} | {smi}")
+        if name + " decompress" in t4:
+            say(f"{name} keep-order decompress: -T 1 "
+                f"{t1[name + ' decompress']['wall_s']:.3f} s, -T 4 "
+                f"{t4[name + ' decompress']['wall_s']:.3f} s, the input back "
+                f"| {smi}")
+
+    default = {k: v for k, v in SLICE.items() if k != "threads"}
+    threads = Config(inputs=(src,), **default).threads
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    scalce_tpu_torch.compress(Config(inputs=(src,), output=os.path.join(
+        tmp, "main_Tdef"), **default), "cuda")
+    torch.cuda.synchronize()
+    t_def = time.monotonic() - t0
+    if triplet(os.path.join(tmp, "main_Tdef")) != triplet(t1["main"]
+                                                           ["prefix"]):
+        raise AssertionError("default-threads triplet != -T 1's")
+    say(f"main compress at Config()'s default -T {threads} (os.cpu_count() "
+        f"{os.cpu_count()}): {t_def:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {smi}")
+
+    prof = device_busy(lambda: compress(os.path.join(tmp, "main_T4_prof")))
+    if prof is None:
+        say("-T 4 compress under torch.profiler: no device events recorded "
+            "(device busy not measured)")
+    else:
+        kinds = ", ".join(f"{name} {sec:.4f} s" for name, sec
+                          in sorted(prof["by_kind_s"].items()))
+        say(f"stage_profile.device_busy of the -T 4 compress: wall "
+            f"{prof['wall_s']:.3f} s, device busy {prof['busy_s']:.4f} s "
+            f"({100 * prof['busy_s'] / prof['wall_s']:.1f}%; {kinds}) | {smi}")
+    return t4
+
+
 def main() -> int:
     smi = card()                                              # phase 1
     from scalce_tpu_torch.ops import (_cuda, core_rank, hist, histogram,
@@ -751,15 +885,19 @@ def main() -> int:
         del group
 
         reset(kernels)                                          # phase 4
+        t1 = {}        # the -T 1 runs that phase 10 repeats at -T 4
         t_c = compress_file(src, os.path.join(tmp, "main"), "cuda")
+        record(t1, "main", kernels, t_c, os.path.join(tmp, "main"))
         import scalce_tpu_torch
         from scalce_tpu_torch.config import Config
         t0 = time.monotonic()
         scalce_tpu_torch.decompress(Config(
             mode="decompress", inputs=(os.path.join(tmp, "main.00.scalcen"),),
             output=os.path.join(tmp, "main_out"), keep_order=True,
-            qual_on_device=True), "cuda")
+            qual_on_device=True, threads=1), "cuda")
         t_d = time.monotonic() - t0
+        t1["main decompress"] = {"wall_s": t_d,
+                                 "launches": counts(kernels, kernels)}
         launches = counts(kernels, main_path)
         with open(os.path.join(tmp, "main_out.fastq"), "rb") as f:
             if f.read() != data:
@@ -788,11 +926,16 @@ def main() -> int:
             f"card {t_gpu:.2f} s, CPU {t_cpu:.2f} s)")
 
         sharded, driver = check_data_parallel(src, tmp, kernels, smi,
-                                              t_c)              # phase 6
+                                              t_c, t1)          # phase 6
         launches.update(K5=driver["K5"], K6=driver["K6"])
-        check_paired(tmp, kernels, smi)                         # phase 7
-        check_lossy(src, data, comp, tmp, kernels, smi)         # phase 8
-        check_cli_defaults(src, data, tmp, kernels, smi)        # phase 9
+        check_paired(tmp, kernels, smi, t1)                     # phase 7
+        check_lossy(src, data, comp, tmp, kernels, smi, t1)     # phase 8
+        check_cli_defaults(src, data, tmp, kernels, smi, t1)    # phase 9
+        t4 = check_pipelined(src, data, tmp, kernels, smi, t1)  # phase 10
+        launches_t4 = {n: t4["main decompress"]["launches"][n]
+                       for n in main_path}
+        launches_t4.update(K5=t4["dp"]["launches"]["K5"],
+                           K6=t4["dp"]["launches"]["K6"])
 
     # K2 also through the lossy LUT and grids-only (the data-parallel
     # path's); K4 also at the main path's remainder group (D = 1); K5 and
@@ -804,7 +947,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": f"{name} {fn.__name__}", "route": "cuda",
          "source": mod.SOURCE, "replaces": mod.REPLACES,
-         "launches": launches[name],
+         "launches": launches[name], "launches_T4": launches_t4[name],
          **({"sharded_launches": sharded[name]}
             if name in ("K5", "K6") else {}),
          **measured[name],

@@ -19,20 +19,25 @@ import torch
 _WIDEN = {np.dtype(np.uint16): np.int32, np.dtype(np.uint32): np.int64}
 
 
+def host_form(a) -> np.ndarray:
+    """A reference array as the port's tensors hold it: u16 -> int32,
+    u32 -> int64, other dtypes unchanged; C-contiguous and writable (what
+    ``torch.from_numpy`` takes without a copy)."""
+    a = np.asarray(a)
+    wide = _WIDEN.get(a.dtype)
+    if wide is not None:
+        return a.astype(wide)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        return a.copy()
+    return a
+
+
 def from_reference(arrays: Mapping[str, np.ndarray], device
                    ) -> Dict[str, torch.Tensor]:
     """Reference arrays -> port tensors on ``device`` (u16 -> int32,
     u32 -> int64, other dtypes unchanged)."""
-    out = {}
-    for name, a in arrays.items():
-        a = np.asarray(a)
-        wide = _WIDEN.get(a.dtype)
-        if wide is not None:
-            a = a.astype(wide)
-        elif not (a.flags.c_contiguous and a.flags.writeable):
-            a = a.copy()
-        out[name] = torch.from_numpy(a).to(device)
-    return out
+    return {name: torch.from_numpy(host_form(a)).to(device)
+            for name, a in arrays.items()}
 
 
 def to_numpy(tensors: Mapping[str, torch.Tensor],

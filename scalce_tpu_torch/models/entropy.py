@@ -36,7 +36,7 @@ def device_normalize(counts: torch.Tensor, n_ctx: int, n_syms: int
     total = ci.sum(dim=1, dtype=torch.int32)
     scale = (M_TOTAL - nnz).to(torch.float32) / \
         total.clamp(min=1).to(torch.float32)
-    bias = torch.tensor(1.0 - 1e-5, dtype=torch.float32, device=ci.device)
+    bias = torch.full((), 1.0 - 1e-5, dtype=torch.float32, device=ci.device)
     f_extra = torch.floor((ci.to(torch.float32) * scale[:, None]) * bias)
     f = torch.where(nz, 1 + f_extra.to(torch.int32), 0)
     d = M_TOTAL - f.sum(dim=1, dtype=torch.int32)

@@ -17,11 +17,16 @@ single-host driver does not need.  A tail group (fewer than D blocks or
 pairs) takes the single-device :class:`BlockEncoder`, as the
 reference's does.  Every payload byte equals the single-device path's:
 bytes are a pure function of (block, Config).
+
+As :class:`BlockEncoder`'s, a group goes through :meth:`upload_group`
+(any thread), :meth:`ShardedEncoder.dispatch` (the thread that owns the
+devices: every kernel and each device's downloads, queued) and
+:meth:`ShardedEncoder.assemble` (any thread: each block's host half).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,12 +34,12 @@ import torch
 from scalce_tpu_torch.config import Config, resolve_read_len
 from scalce_tpu_torch.io.fastq import ReadBlock
 from scalce_tpu_torch.streams.seqs import _pack2bit_np
-from scalce_tpu_torch import convert
 from scalce_tpu_torch.device import resolve_device
 from scalce_tpu_torch.ops.histogram import histogram
 from scalce_tpu_torch.pipeline import encode
 from scalce_tpu_torch.streams import qualities
 from scalce_tpu_torch.timing import stage
+from scalce_tpu_torch.transfer import Fetched, Link, Staged
 
 
 def local_mesh(n: Optional[int] = None, device="cuda") -> List[torch.device]:
@@ -51,36 +56,39 @@ def local_mesh(n: Optional[int] = None, device="cuda") -> List[torch.device]:
     return devs[:n]
 
 
-def upload_blocks(blocks: Sequence[ReadBlock], device, qual: bool = True
-                  ) -> Dict[str, torch.Tensor]:
+def upload_blocks(blocks: Sequence[ReadBlock], device, qual: bool = True,
+                  link: Optional[Link] = None) -> Staged:
     """H2D of one device's blocks, stacked (the reference's
-    ``_stack_blocks``): 2-bit packed sequences ``[g, B, L/16]``,
-    qualities ``[g, B, L]`` (with ``qual``), lengths ``[g, B]``, and a
-    tuple of each block's flat exception positions."""
+    ``_stack_blocks``), through ``link`` (default: a new one for
+    ``device``): 2-bit packed sequences ``[g, B, L/16]``, qualities
+    ``[g, B, L]`` (with ``qual``), lengths ``[g, B]``, and a tuple of each
+    block's flat exception positions."""
     host = {"seq": np.stack([_pack2bit_np(b.seq).reshape(b.seq.shape[0], -1)
                              for b in blocks]),
             "len": np.stack([b.lengths for b in blocks]),
             "exc": np.concatenate([b.exc_pos for b in blocks])}
     if qual:
         host["qual"] = np.stack([b.qual for b in blocks])
-    t = convert.from_reference(host, device)
+    t = (link or Link(resolve_device(device))).upload(host)
     t["exc"] = torch.split(t["exc"], [b.exc_pos.size for b in blocks])
     return t
 
 
-def stage1(pre: Dict[str, torch.Tensor], n_reads: Sequence[int], k: int,
+def stage1(pre: Staged, n_reads: Sequence[int], k: int,
            seed: int, order: int, qual_map: Optional[torch.Tensor] = None,
            perms: Optional[Sequence[torch.Tensor]] = None):
     """One device's share of a group (the reference's
-    ``make_sharded_stage1`` on one device): stages A and B per block
-    (K2 writes each block's grids, without counting them, into its
-    slices of the share's ``[g, B, L]`` grids), then ONE K6 launch
-    counts them.  With ``perms`` (mate 1's permutations) the blocks are
-    mate 2's, each following its mate-1 block's permutation
-    (``make_sharded_stage_mate2``).  Returns per-block lists ``perm``,
-    ``delta``, ``len_s``, then ``sym`` and ``ctx`` ``[g, B, L]`` and
-    ``counts`` ``[g, C*94]``; without qualities in ``pre`` (host
-    placement: ``make_sharded_stage1_nq``) the last three are None."""
+    ``make_sharded_stage1`` on one device), from its
+    :func:`upload_blocks`: stages A and B per block (K2 writes each
+    block's grids, without counting them, into its slices of the share's
+    ``[g, B, L]`` grids), then ONE K6 launch counts them.  With ``perms``
+    (mate 1's permutations) the blocks are mate 2's, each following its
+    mate-1 block's permutation (``make_sharded_stage_mate2``).  Returns
+    per-block lists ``perm``, ``delta``, ``len_s``, then ``sym`` and
+    ``ctx`` ``[g, B, L]`` and ``counts`` ``[g, C*94]``; without qualities
+    in ``pre`` (host placement: ``make_sharded_stage1_nq``) the last
+    three are None."""
+    pre = pre.wait()
     qual = pre.get("qual")
     sym = ctx = None
     if qual is not None:
@@ -125,19 +133,22 @@ class ShardedEncoder:
         self._fallback = encode.BlockEncoder(cfg, self.mesh[0], qual_map)
         self._maps = {dev: encode.device_qual_map(qual_map, dev)
                       for dev in set(self.mesh)}
+        self._links = {dev: Link(dev) for dev in set(self.mesh)}
         self.cfg = cfg
 
-    def _shares(self, blocks: Sequence[ReadBlock]) -> List[Sequence]:
+    def _shares(self, blocks: Sequence) -> List[Sequence]:
         g = self.group
         return [blocks[i * g:(i + 1) * g] for i in range(len(self.mesh))]
 
-    def upload_group(self, blocks: Sequence[ReadBlock]):
+    def upload_group(self, blocks: Sequence[ReadBlock]
+                     ) -> Optional[List[Staged]]:
         """Per-device stacked uploads of a full group; None for a tail
         group (it takes the per-block path)."""
         if len(blocks) != self.D:
             return None
         with stage("upload"):
-            return [upload_blocks(share, dev, self.cfg.qual_on_device)
+            return [upload_blocks(share, dev, self.cfg.qual_on_device,
+                                  self._links[dev])
                     for share, dev in zip(self._shares(blocks), self.mesh)]
 
     def _stage1(self, blocks: Sequence[ReadBlock], pre=None, perms=None):
@@ -177,62 +188,80 @@ class ShardedEncoder:
         every device's pass B."""
         return self._pass_b(blocks, self._stage1(blocks, pre))
 
-    def assemble(self, blocks: Sequence[ReadBlock], devout
-                 ) -> List[encode.EncodedBlock]:
-        """Per-block download and payload bytes, in input order."""
-        cfg = self.cfg
-        B, L = blocks[0].seq.shape
-        T = qualities.pick_T(B, L, cfg.qual_T_target)
+    def _download(self, per_device) -> List[Fetched]:
+        """Each device's downloads (one queued copy of its blocks'
+        outputs) -> one :class:`Fetched` per block, in input order."""
         out = []
-        for share, (perm, delta, len_s, freq, states, packed,
-                    wcounts) in zip(self._shares(blocks), devout):
-            for j, block in enumerate(share):
-                enc_q = None
-                if freq is not None:
-                    with stage("pass B"):
-                        enc_q = qualities.finish_encoded(
-                            freq[j], states[j], packed[j], wcounts[j], B, L,
-                            T, cfg.qual_context_order)
-                out.append(self._fallback.assemble_encoded(
-                    block, perm[j], delta[j], len_s[j], enc_q))
+        for dev, (perm, delta, len_s, *pb) in zip(self.mesh, per_device):
+            groups = []
+            for j in range(len(perm)):
+                g = {"perm": perm[j], "len_s": len_s[j],
+                     **encode._delta_for_download(delta[j])}
+                if pb[0] is not None:
+                    g.update(qualities.for_download(*(t[j] for t in pb)))
+                groups.append(g)
+            with stage("download"):
+                out += self._links[dev].download(*groups)
         return out
+
+    def dispatch(self, blocks: Sequence[ReadBlock], pre=None
+                 ) -> List[Fetched]:
+        """Every kernel of a group and its downloads, queued (``pre``:
+        its :meth:`upload_group`); a tail group block by block through
+        the single-device encoder."""
+        if len(blocks) < self.D:
+            return [self._fallback.dispatch(b) for b in blocks]
+        return self._download(self.encode_device(blocks, pre))
+
+    def assemble(self, blocks: Sequence[ReadBlock],
+                 fetched: Sequence[Fetched]) -> List[encode.EncodedBlock]:
+        """Per-block host halves (payload bytes), in input order."""
+        return [self._fallback.assemble(b, f)
+                for b, f in zip(blocks, fetched)]
 
     def encode_blocks(self, blocks: Sequence[ReadBlock]
                       ) -> List[encode.EncodedBlock]:
         """Encode up to D blocks; a tail group goes block by block
         through the single-device encoder (identical bytes)."""
-        if len(blocks) < self.D:
-            return [self._fallback.encode_block(b) for b in blocks]
-        return self.assemble(blocks, self.encode_device(blocks))
+        return self.assemble(blocks, self.dispatch(blocks))
 
     # paired-end: mate 1 defines each block's permutation; mate 2's
     # stage 1 follows it, then each mate's group pass B (one K6 and one
     # K5 launch per device and mate)
 
     def encode_device_pair(self, pairs: Sequence[Tuple[ReadBlock,
-                                                       ReadBlock]]):
-        """Device work of a full group of D pairs -> ``(mate 1's, mate
-        2's)`` per-device outputs in :meth:`assemble`'s form."""
+                                                       ReadBlock]],
+                           pre1=None, pre2=None):
+        """Device work of a full group of D pairs (``pre1``/``pre2``:
+        each mate's :meth:`upload_group`) -> ``(mate 1's, mate 2's)``
+        per-device outputs in :meth:`encode_device`'s form."""
         b1s, b2s = [p[0] for p in pairs], [p[1] for p in pairs]
-        s1 = self._stage1(b1s)
-        s2 = self._stage1(b2s, perms=[s[0] for s in s1])
+        s1 = self._stage1(b1s, pre1)
+        s2 = self._stage1(b2s, pre2, perms=[s[0] for s in s1])
         return self._pass_b(b1s, s1), self._pass_b(b2s, s2)
 
-    def assemble_pair(self, pairs, devout
+    def dispatch_pair(self, pairs, pre1=None, pre2=None
+                      ) -> List[List[Fetched]]:
+        """:meth:`dispatch` of a group of pairs: per pair, both mates'
+        downloads; a tail group pair by pair."""
+        if len(pairs) < self.D:
+            return [self._fallback.dispatch_pair(*p) for p in pairs]
+        out1, out2 = self.encode_device_pair(pairs, pre1, pre2)
+        return [list(f) for f in zip(self._download(out1),
+                                     self._download(out2))]
+
+    def assemble_pair(self, pairs, fetched
                       ) -> List[Tuple[encode.EncodedBlock,
                                       encode.EncodedBlock]]:
-        out1, out2 = devout
-        return list(zip(self.assemble([p[0] for p in pairs], out1),
-                        self.assemble([p[1] for p in pairs], out2)))
+        return [self._fallback.assemble_pair(*p, f)
+                for p, f in zip(pairs, fetched)]
 
     def encode_block_pairs(self, pairs: Sequence[Tuple[ReadBlock, ReadBlock]]
                            ) -> List[Tuple[encode.EncodedBlock,
                                            encode.EncodedBlock]]:
         """Encode up to D pairs; a tail group goes pair by pair through
         the single-device encoder (identical bytes)."""
-        if len(pairs) < self.D:
-            return [self._fallback.encode_block_pair(*p) for p in pairs]
-        return self.assemble_pair(pairs, self.encode_device_pair(pairs))
+        return self.assemble_pair(pairs, self.dispatch_pair(pairs))
 
 
 def lossy_hist_allreduce(quals, lengths, mesh: Sequence[torch.device]

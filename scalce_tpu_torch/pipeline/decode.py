@@ -1,11 +1,14 @@
 """Block decode pipeline (port of ``scalce_tpu/pipeline/decode.py``).
 
-Per group of up to ``DECODE_GROUP`` blocks: the host parses each
-block's sequence payload (serial delta walk in the native library), the
-qualities decode on the host (``qualities_host.decode_host``, the
-default) or in one K4 launch for every block (``qual_on_device``), then
-``_finish`` restores strand orientation, names and — under keep-order —
-arrival order.
+Per group of up to ``DECODE_GROUP`` blocks: :meth:`BlockDecoder.parse_block`
+parses each block's payloads on the host (the sequences by a serial
+delta walk in the native library); with ``qual_on_device``,
+:meth:`BlockDecoder.dispatch_quals` decodes the group's qualities in one
+K4 launch and queues the grids' download (the thread that owns the
+device); :meth:`BlockDecoder.finish_group` waits for them, or decodes
+the qualities on the host (``qualities_host.decode_host``, the default),
+then ``_finish`` restores strand orientation, names and, under
+keep-order, arrival order.  Parse and finish run on any thread.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from scalce_tpu_torch.streams import names as names_stream
 from scalce_tpu_torch.device import resolve_device
 from scalce_tpu_torch.timing import stage
 from scalce_tpu_torch.streams import qualities, qualities_host, seqs
+from scalce_tpu_torch.transfer import Link
 
 
 @dataclasses.dataclass
@@ -44,11 +48,11 @@ class BlockDecoder:
                  qual_on_device: bool = False):
         self.meta = meta
         self.device = resolve_device(device)
+        self.link = Link(self.device)
         self.keep_order = keep_order
         #: quality-decode placement, a per-run choice (the payload does
         #: not depend on where it was encoded)
         self.qual_on_device = qual_on_device
-        self._name_counter = 1          # template-mode running index
 
     def parse_block(self, payloads: Dict[str, bytes]):
         """Host payload parse: seq reconstruct + quality stream fields."""
@@ -59,29 +63,39 @@ class BlockDecoder:
         with stage("qualities.parse"):
             return parsed, qualities.parse(payloads["q"])
 
-    def decode_blocks(self, payload_list) -> List["DecodedBlock"]:
-        """Decode up to DECODE_GROUP blocks.  On the device their
-        qualities decode in one launch (D = the group's size) unless
-        their (B, L, T, order) differ, as per-block order selection can
-        make them; on the host, block by block."""
-        parsed, encs = zip(*(self.parse_block(p) for p in payload_list))
-        lengths = [pr[1] for pr in parsed]
+    def dispatch_quals(self, parsed_list, encs):
+        """The group's quality decode on the device, queued: one K4
+        launch (the blocks must share (B, L, T, order), as per-block
+        order selection may not make them) and the grids' download.  For
+        host placement the streams pass through to :meth:`finish_group`."""
+        if not self.qual_on_device:
+            return encs
         with stage("quality decode"):
-            if not self.qual_on_device:
-                quals = [qualities_host.decode_host(e, ln)
-                         for e, ln in zip(encs, lengths)]
-            elif len({(e.B, e.L, e.T, e.order) for e in encs}) == 1:
-                quals = qualities.decode_batch(list(encs), lengths,
-                                               self.device)
+            return qualities.decode_batch_dispatch(
+                list(encs), [pr[1] for pr in parsed_list], self.link)
+
+    def decode_qual_single(self, enc, lengths) -> np.ndarray:
+        """One block's qualities decoded on the host."""
+        return qualities_host.decode_host(enc, lengths)
+
+    def finish_group(self, payload_list, parsed_list, dev,
+                     name_starts) -> List["DecodedBlock"]:
+        """The host half of a group: its qualities (:meth:`dispatch_quals`'
+        download, or decoded here on the host), then :meth:`_finish` of
+        each block; ``name_starts``: each block's first template-name
+        index."""
+        with stage("quality decode"):
+            if self.qual_on_device:
+                quals = qualities.decode_batch_fetch(dev)
             else:
-                quals = [qualities.decode_batch([e], [ln], self.device)[0]
-                         for e, ln in zip(encs, lengths)]
+                quals = [self.decode_qual_single(e, pr[1])
+                         for e, pr in zip(dev, parsed_list)]
         with stage("_finish"):
-            return [self._finish(p, pr, q)
-                    for p, pr, q in zip(payload_list, parsed, quals)]
+            return [self._finish(p, pr, q, ns) for p, pr, q, ns
+                    in zip(payload_list, parsed_list, quals, name_starts)]
 
     def _finish(self, payloads: Dict[str, bytes], parsed,
-                qual: np.ndarray) -> DecodedBlock:
+                qual: np.ndarray, name_start: int) -> DecodedBlock:
         """Copy of the reference's: rc flip, names, keep-order."""
         seq, lengths, n_reads, exc_pos, exc_byte, perm, rc = parsed
         L = seq.shape[1]
@@ -106,8 +120,7 @@ class BlockDecoder:
             raise ValueError("stream record-count mismatch")
         if "template" in na:
             lib = self.meta.get("name_lib") or "lib"
-            names = names_stream.template_names(lib, self._name_counter, n)
-            self._name_counter += n
+            names = names_stream.template_names(lib, name_start, n)
             names_orig_order = self.keep_order   # template: emit as-is
         else:
             names = names_stream.decode(na["names_blob"].tobytes())

@@ -1,18 +1,44 @@
-"""Serial compress/decompress drivers (port of the reference's
-``scalce_tpu/pipeline/driver.py`` entry points, paired-end, lossy and
-``--data-parallel`` included, without its host pipelining threads:
-ROADMAP.md Queue 1 item 17)."""
+"""Compress and decompress drivers (port of the reference's
+``scalce_tpu/pipeline/driver.py`` entry points: single-end, paired-end,
+lossy and ``--data-parallel``), pipelined as the reference's are.
+
+Compress runs on these threads:
+
+- parse: :func:`~scalce_tpu_torch.pipeline.threads._prefetch` over the
+  FASTQ parse, three blocks ahead;
+- upload: ``_prefetch`` over the uploads (page-locked staging, the H2D
+  copies on the device's copy stream), two blocks (or groups) ahead;
+- main: dispatch, in block order -- every kernel of a block (or of a
+  data-parallel group) and its downloads, queued on the device without
+  waiting for it (``transfer.Link`` keeps at most ``transfer.DEPTH``
+  downloads in flight per device, whatever ``-T`` is); then the
+  emits (container writes), in block order;
+- ``cfg.threads`` (``-T``) assembly workers: each block's host half
+  (wait for its downloads, payload bytes), at most ``threads + 2``
+  blocks pending.  With ``-T 1`` or less the main thread assembles each
+  block right after its dispatch: the same code, no pool.
+
+Decompress runs the container read on a prefetch thread, the payload
+parse and each group's finish and FASTQ render on a pool of ``-T``
+workers, the quality decode's K4 launch and download on the main
+thread, and the ordered writes on a writer thread.  Bytes never depend
+on ``-T``.  An exception on any thread raises out of :func:`compress` or
+:func:`decompress` once the threads it started have stopped.
+"""
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures as _fut
 import contextlib
 import dataclasses
 import itertools
 import json
 import os
 import sys
+import threading
 import time
-from typing import Dict, Iterator, List
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -23,6 +49,7 @@ from scalce_tpu_torch.models import lossy
 from scalce_tpu_torch.parallel.mesh import ShardedEncoder
 from scalce_tpu_torch.pipeline.decode import DECODE_GROUP, BlockDecoder
 from scalce_tpu_torch.pipeline.encode import BlockEncoder, file_meta
+from scalce_tpu_torch.pipeline.threads import _AsyncWriter, _prefetch
 from scalce_tpu_torch.timing import stage
 
 
@@ -30,7 +57,8 @@ from scalce_tpu_torch.timing import stage
 class RunStats:
     """The reference's run record (per-stream bytes, ratio, GB/s, host
     seconds of the compress's ``device_dispatch`` and ``assemble``
-    calls, placement) plus ``device``, the devices it ran on."""
+    calls, summed over the threads that ran them, placement) plus
+    ``device``, the devices it ran on."""
     mode: str
     device: str = ""
     n_reads: int = 0
@@ -50,17 +78,6 @@ class RunStats:
         if self.wall_s > 0:
             d["GBps"] = self.input_bytes / self.wall_s / 1e9
         return json.dumps(d, sort_keys=True)
-
-
-def _timed(seconds: Dict[str, float], name: str, fn, *args):
-    """``fn(*args)``, adding its host-clock seconds to ``seconds[name]``
-    (no device synchronization: a dispatch's time is its enqueue and
-    whatever its own downloads wait for)."""
-    t0 = time.monotonic()
-    try:
-        return fn(*args)
-    finally:
-        seconds[name] = seconds.get(name, 0.0) + time.monotonic() - t0
 
 
 def _lossy_preamble(cfg: Config, blocks: Iterator):
@@ -83,7 +100,94 @@ def _lossy_preamble(cfg: Config, blocks: Iterator):
                 break
         qual_map = lossy.build_quant_map(hist, cfg.lossy_pct) if buffered \
             else lossy.identity_map()
-    return qual_map, itertools.chain(buffered, blocks)
+    return qual_map, _chain(buffered, blocks)
+
+
+def _chain(first, rest: Iterator) -> Iterator:
+    """``first``'s items, then ``rest``'s; closing it closes ``rest``."""
+    yield from first
+    yield from rest
+
+
+def _run_pipelined(items: Iterator, dispatch: Callable, assemble: Callable,
+                   emit: Callable, workers: int,
+                   stage_s: Optional[Dict[str, float]] = None) -> None:
+    """The reference's three-stage pipeline: ``dispatch(item)`` on this
+    thread, in order; ``assemble(item, dispatched)`` on a pool of
+    ``workers`` threads, at most ``workers + 2`` pending; ``emit`` of each
+    result on this thread, in order.  With ``workers <= 1`` each item is
+    assembled here, right after its dispatch.  ``stage_s`` accumulates
+    the seconds of both calls under a lock."""
+    times = stage_s if stage_s is not None else {}
+    times.setdefault("device_dispatch", 0.0)
+    times.setdefault("assemble", 0.0)
+    times_lock = threading.Lock()
+
+    def timed(label, fn, *a):
+        t0 = time.monotonic()
+        try:
+            return fn(*a)
+        finally:
+            with times_lock:        # pool workers update concurrently
+                times[label] += time.monotonic() - t0
+
+    if workers <= 1:
+        for item in items:
+            emit(timed("assemble", assemble, item,
+                       timed("device_dispatch", dispatch, item)))
+        return
+    pool = _fut.ThreadPoolExecutor(max_workers=workers)
+    pending: collections.deque = collections.deque()
+    try:
+        for item in items:
+            dispatched = timed("device_dispatch", dispatch, item)
+            pending.append(pool.submit(timed, "assemble", assemble, item,
+                                       dispatched))
+            while len(pending) >= workers + 2:
+                emit(pending.popleft().result())
+        while pending:
+            emit(pending.popleft().result())
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _first(item):
+    """The (mate-1) block of a parsed item."""
+    return item[0] if isinstance(item, tuple) else item
+
+
+def _parsed(blocks: Iterator, done) -> Iterator:
+    """The parsed blocks (or pairs), timed as ``parse FASTQ``, without
+    the block ids in ``done`` (already in a resumed triplet).  Closes
+    ``blocks`` (the input) when it stops."""
+    with contextlib.closing(blocks):
+        while True:
+            with stage("parse FASTQ"):
+                item = next(blocks, None)
+            if item is None:
+                return
+            if _first(item).block_id not in done:
+                yield item
+
+
+def _staged(groups: Iterator, upload: Callable) -> Iterator:
+    """Each group with its upload, the parse one prefetch thread ahead
+    (stopped when this generator stops)."""
+    with contextlib.closing(_prefetch(groups)) as parsed:
+        for group in parsed:
+            yield group, upload(group)
+
+
+def _groups(items: Iterator, D: int) -> Iterator[List]:
+    """``items`` in lists of D (the last may be shorter)."""
+    group = []
+    for item in items:
+        group.append(item)
+        if len(group) == D:
+            yield group
+            group = []
+    if group:
+        yield group
 
 
 def _open_writers(cfg: Config) -> List[container.TripletWriter]:
@@ -112,12 +216,41 @@ def _open_writers(cfg: Config) -> List[container.TripletWriter]:
     return writers
 
 
+def _encoder(cfg: Config, device, qual_map):
+    """``(devices, D, upload, dispatch, assemble)`` of the run's encoder:
+    the single-device :class:`BlockEncoder` on groups of one block, or
+    the :class:`ShardedEncoder` on groups of D.  ``upload(group)`` runs
+    on the upload thread, ``dispatch(group, pre)`` on the main thread,
+    ``assemble(group, dispatched)`` gives one output per block (a pair of
+    them for ``-r``) on any thread."""
+    if cfg.data_parallel:
+        senc = ShardedEncoder(cfg, device, qual_map=qual_map)
+        if cfg.paired:
+            return (senc.mesh, senc.D,
+                    lambda g: (senc.upload_group([p[0] for p in g]),
+                               senc.upload_group([p[1] for p in g])),
+                    lambda g, pre: senc.dispatch_pair(g, *pre),
+                    senc.assemble_pair)
+        return (senc.mesh, senc.D, senc.upload_group, senc.dispatch,
+                senc.assemble)
+    enc = BlockEncoder(cfg, device, qual_map)
+    if cfg.paired:
+        return ([enc.device], 1,
+                lambda g: (enc.upload(g[0][0]), enc.upload(g[0][1])),
+                lambda g, pre: enc.dispatch_pair(*g[0], *pre),
+                lambda g, f: [enc.assemble_pair(*g[0], f)])
+    return ([enc.device], 1, lambda g: enc.upload(g[0]),
+            lambda g, pre: enc.dispatch(g[0], pre),
+            lambda g, f: [enc.assemble(g[0], f)])
+
+
 def compress(cfg: Config, device) -> RunStats:
     """Compress ``cfg.inputs`` (one FASTQ, or a pair with ``cfg.paired``)
-    into the ``cfg.output`` triplet (``_1``/``_2`` triplets for a pair);
-    with ``cfg.data_parallel``, in groups of blocks over every device
-    that ``device`` names (``parallel/mesh.py``); with ``cfg.lossy_pct``,
-    through the lossy quality map of the sampled reads."""
+    into the ``cfg.output`` triplet (``_1``/``_2`` triplets for a pair)
+    on ``cfg.threads`` assembly workers; with ``cfg.data_parallel``, in
+    groups of blocks over every device that ``device`` names
+    (``parallel/mesh.py``); with ``cfg.lossy_pct``, through the lossy
+    quality map of the sampled reads."""
     t0 = time.monotonic()
     for p in cfg.inputs:
         if p != "-" and not os.path.exists(p):
@@ -130,57 +263,46 @@ def compress(cfg: Config, device) -> RunStats:
         (path,) = cfg.inputs
         blocks = fastq.iter_blocks(path, cfg.block_reads, cfg.max_read_len)
     qual_map, blocks = _lossy_preamble(cfg, blocks)
-    if cfg.data_parallel:
-        senc = ShardedEncoder(cfg, device, qual_map=qual_map)
-        D, devices = senc.D, senc.mesh
-
-        def dispatch(group):
-            # a tail group takes the single-device encoder at assembly
-            if len(group) < D:
-                return None
-            return senc.encode_device_pair(group) if cfg.paired \
-                else senc.encode_device(group)
-
-        def assemble(group, devout):
-            if devout is None:
-                return [senc._fallback.encode_block_pair(*b) if cfg.paired
-                        else senc._fallback.encode_block(b) for b in group]
-            return senc.assemble_pair(group, devout) if cfg.paired \
-                else senc.assemble(group, devout)
-    else:
-        enc = BlockEncoder(cfg, device, qual_map)
-        D, devices = 1, [enc.device]
-
-        def dispatch(group):
-            return [enc.encode_device_pair(*b) if cfg.paired
-                    else enc.encode_device(b) for b in group]
-
-        def assemble(group, devouts):
-            return [enc.assemble_pair(*b, d) if cfg.paired
-                    else enc.assemble(b, d) for b, d in zip(group, devouts)]
+    devices, D, upload, dispatch, assemble = _encoder(cfg, device, qual_map)
     stats = RunStats(mode="compress", placement="device",
                      device=",".join(str(d) for d in devices))
     writers = _open_writers(cfg)
+
+    def assemble_recycle(item, dispatched):
+        # the host half is the last reader of the parsed arrays (the
+        # upload copied them into page-locked staging): the parser may
+        # reuse them
+        group = item[0]
+        outs = assemble(group, dispatched)
+        for x in group:
+            for b in x if isinstance(x, tuple) else (x,):
+                fastq.recycle_block(b)
+        return outs
+
+    def emit(outs):
+        for out in outs:
+            ebs = out if cfg.paired else (out,)
+            with stage("write"):
+                for w, eb in zip(writers, ebs):
+                    w.add_block(eb.block_id, eb.payloads, eb.n_reads)
+            stats.n_blocks += 1
+            for eb in ebs:
+                stats.n_reads += eb.n_reads
+                for k, p in eb.payloads.items():
+                    stats.stream_bytes[k] += len(p)
+            if cfg.verbose:
+                print(f"[scalce_tpu_torch] block {ebs[0].block_id}: "
+                      f"{sum(eb.n_reads for eb in ebs)} reads, "
+                      f"{sum(eb.total_bytes for eb in ebs)} bytes",
+                      file=sys.stderr)
+
+    groups = _groups(_parsed(blocks, writers[0].existing_blocks), D)
     try:
-        for group in _groups(blocks, D, writers[0].existing_blocks):
-            devout = _timed(stats.stage_s, "device_dispatch", dispatch,
-                            group)
-            for out in _timed(stats.stage_s, "assemble", assemble, group,
-                              devout):
-                ebs = out if cfg.paired else (out,)
-                with stage("write"):
-                    for w, eb in zip(writers, ebs):
-                        w.add_block(eb.block_id, eb.payloads, eb.n_reads)
-                stats.n_blocks += 1
-                for eb in ebs:
-                    stats.n_reads += eb.n_reads
-                    for k, p in eb.payloads.items():
-                        stats.stream_bytes[k] += len(p)
-                if cfg.verbose:
-                    print(f"[scalce_tpu_torch] block {ebs[0].block_id}: "
-                          f"{sum(eb.n_reads for eb in ebs)} reads, "
-                          f"{sum(eb.total_bytes for eb in ebs)} bytes",
-                          file=sys.stderr)
+        with contextlib.closing(_prefetch(_staged(groups, upload),
+                                          depth=2)) as items:
+            _run_pipelined(items, lambda it: dispatch(*it),
+                           assemble_recycle, emit, cfg.threads,
+                           stats.stage_s)
     finally:
         for w in writers:
             w.close()
@@ -190,27 +312,6 @@ def compress(cfg: Config, device) -> RunStats:
     return stats
 
 
-def _groups(blocks: Iterator, D: int, done) -> Iterator[List]:
-    """Parsed blocks (or pairs of blocks) in groups of D (the last may be
-    shorter), skipping the block ids in ``done`` (already in a resumed
-    triplet)."""
-    group = []
-    while True:
-        with stage("parse FASTQ"):
-            item = next(blocks, None)
-        if item is None:
-            break
-        first = item[0] if isinstance(item, tuple) else item
-        if first.block_id in done:
-            continue
-        group.append(item)
-        if len(group) == D:
-            yield group
-            group = []
-    if group:
-        yield group
-
-
 def check_decode_config(cfg: Config) -> None:
     """Raise NotImplementedError outside the ported decode slice."""
     if cfg.delta_on_device:
@@ -218,12 +319,24 @@ def check_decode_config(cfg: Config) -> None:
             "--delta-device decode: ROADMAP.md Queue 1 item 15")
 
 
+class _StageWrites:
+    """A binary output whose writes are timed as the ``write`` stage
+    (on the writer thread)."""
+
+    def __init__(self, out):
+        self._out = out
+
+    def write(self, buf) -> None:
+        with stage("write"):
+            self._out.write(buf)
+
+
 def decompress(cfg: Config, device) -> RunStats:
-    """Decompress the triplet named by ``cfg.inputs[0]`` to FASTQ; a
-    paired triplet (either mate's file names it) to ``<output>_1.fastq``
-    and ``<output>_2.fastq`` in lockstep, record i of one pairing with
-    record i of the other.  Each mate has its own decoder (and
-    template-name counter)."""
+    """Decompress the triplet named by ``cfg.inputs[0]`` to FASTQ on
+    ``cfg.threads`` workers; a paired triplet (either mate's file names
+    it) to ``<output>_1.fastq`` and ``<output>_2.fastq`` in lockstep,
+    record i of one pairing with record i of the other.  Each mate has
+    its own decoder."""
     t0 = time.monotonic()
     check_decode_config(cfg)
     (path,) = cfg.inputs
@@ -248,14 +361,10 @@ def decompress(cfg: Config, device) -> RunStats:
                 files.callback(sys.stdout.buffer.flush)
             else:
                 outs.append(files.enter_context(open(p, "wb")))
-        group = []
-        for payloads in _lockstep(readers):
-            group.append(payloads)
-            if len(group) == DECODE_GROUP:
-                _decode_group(group, decs, outs, stats)
-                group = []
-        if group:
-            _decode_group(group, decs, outs, stats)
+        items = files.enter_context(contextlib.closing(
+            _prefetch(_lockstep(readers), depth=8)))
+        _run_decode_pipeline(items, decs, [_StageWrites(o) for o in outs],
+                             cfg.threads, stats)
     stats.output_bytes = sum(_file_size(p) for p in paths)
     stats.wall_s = time.monotonic() - t0
     return stats
@@ -270,21 +379,100 @@ def _lockstep(readers) -> Iterator[List[Dict[str, bytes]]]:
         yield [payloads for _, payloads in items]
 
 
-def _decode_group(group, decs, outs, stats: RunStats) -> None:
-    """A group of up to DECODE_GROUP blocks: one K4 launch per mate, the
-    mates one after the other, so one mate's decode buffers are held at
-    a time (K4's output is about 1 GB per group of 4 full blocks)."""
-    for c, (dec, out) in enumerate(zip(decs, outs)):
-        for b in dec.decode_blocks([payloads[c] for payloads in group]):
-            with stage("render FASTQ"):
-                buf = fastq.render_fastq_records(b.seq, b.qual, b.lengths,
-                                                 b.n_reads, b.exc_pos,
-                                                 b.exc_byte, b.names, b.plus)
-            with stage("write"):
-                if buf is not None:
-                    out.write(buf)
-            stats.n_reads += b.n_reads
-    stats.n_blocks += len(group)
+def _run_decode_pipeline(items: Iterator, decs: List[BlockDecoder],
+                         outs: List, workers: int, stats: RunStats) -> None:
+    """The reference's pipelined decompress over one or more channels
+    (mates); ``items`` yields each block's payloads per channel.
+
+      pool:          payload parse, at most ``2 * workers + DECODE_GROUP``
+                     blocks ahead
+      this thread:   each group's quality decode (``dispatch_quals``: one
+                     K4 launch per group whose streams share (B, L, T,
+                     order), else per block, and the grids' download;
+                     host placement: nothing), with the template-name
+                     start of each block
+      pool:          finish (host quality decode or the download's wait,
+                     ``_finish``) and FASTQ render, per device launch or
+                     per block
+      writer thread: ordered writes
+    """
+    C = len(decs)
+    pool = _fut.ThreadPoolExecutor(max_workers=max(1, workers))
+    parse_pending: collections.deque = collections.deque()
+    out_pending: collections.deque = collections.deque()
+    name_ctr = [1] * C
+    max_parse = max(1, workers) * 2 + DECODE_GROUP
+    writer = _AsyncWriter()
+
+    def finish(c, plist, parsed, dev, starts):
+        blocks = decs[c].finish_group(plist, parsed, dev, starts)
+        with stage("render FASTQ"):
+            return blocks, [fastq.render_fastq_records(
+                b.seq, b.qual, b.lengths, b.n_reads, b.exc_pos, b.exc_byte,
+                b.names, b.plus) for b in blocks]
+
+    def emit(futs):
+        for c, f in futs:
+            blocks, bufs = f.result()
+            for b, buf in zip(blocks, bufs):
+                if buf is not None and len(buf):
+                    writer.write(outs[c], buf)
+                stats.n_reads += b.n_reads
+            if c == 0:
+                stats.n_blocks += len(blocks)
+
+    def drain(block_all: bool) -> None:
+        while out_pending and (block_all or len(out_pending) > 2
+                               or out_pending[0][0][1].done()):
+            emit(out_pending.popleft())
+
+    def dispatch(group) -> None:
+        # group: [(payloads per channel, (parsed, enc) per channel)]
+        futs = []
+        for c, dec in enumerate(decs):
+            plist = [g[0][c] for g in group]
+            parsed = [g[1][c][0] for g in group]
+            encs = [g[1][c][1] for g in group]
+            starts = []
+            for pr in parsed:
+                starts.append(name_ctr[c])
+                name_ctr[c] += pr[2]
+            uniform = len({(e.B, e.L, e.T, e.order) for e in encs}) == 1
+            chunks = [range(len(group))] if dec.qual_on_device and uniform \
+                else [[i] for i in range(len(group))]
+            for idx in chunks:
+                sel = [plist[i] for i in idx], [parsed[i] for i in idx]
+                dev = dec.dispatch_quals(sel[1], [encs[i] for i in idx])
+                futs.append((c, pool.submit(finish, c, *sel, dev,
+                                            [starts[i] for i in idx])))
+        out_pending.append(futs)
+        drain(False)
+
+    def parse_item(ptuple):
+        return tuple(decs[c].parse_block(ptuple[c]) for c in range(C))
+
+    try:
+        group: List = []
+        for ptuple in items:
+            parse_pending.append((ptuple, pool.submit(parse_item, ptuple)))
+            while len(parse_pending) >= max_parse:
+                pt, f = parse_pending.popleft()
+                group.append((pt, f.result()))
+                if len(group) == DECODE_GROUP:
+                    dispatch(group)
+                    group = []
+        while parse_pending:
+            pt, f = parse_pending.popleft()
+            group.append((pt, f.result()))
+            if len(group) == DECODE_GROUP:
+                dispatch(group)
+                group = []
+        if group:
+            dispatch(group)
+        drain(True)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        writer.close()   # join pending writes; re-raise writer errors
 
 
 def _file_size(path) -> int:

@@ -5,7 +5,9 @@ Per block: stage A (unpack the 2-bit upload, canonical cores, sort
 keys, one stable multi-key sort, permute), stage B (aligned-predecessor
 delta of the sorted sequences; with device-placed qualities, the quality
 grids and histogram, through the lossy map if any, in one K2 launch),
-then the host assembly of the ``n``/``r``/``q`` payloads, where
+pass B of device-placed qualities (K3 and the compaction) and the
+downloads, all queued on the device; then the host assembly of the
+``n``/``r``/``q`` payloads, which waits for the downloads and where
 host-placed qualities (the CLI's default) are encoded by
 ``streams/qualities_host.py``.  Paired-end: mate 2 computes its own
 cores but follows mate 1's permutation.  Every payload byte is the
@@ -15,12 +17,12 @@ reference's for the same block and Config.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from scalce_tpu_torch import container, convert
+from scalce_tpu_torch import container
 from scalce_tpu_torch.config import Config
 from scalce_tpu_torch.io.fastq import ReadBlock
 from scalce_tpu_torch.streams import names as names_stream
@@ -29,8 +31,9 @@ from scalce_tpu_torch.timing import stage
 from scalce_tpu_torch.device import resolve_device
 from scalce_tpu_torch.ops import core_match, reorder
 from scalce_tpu_torch.ops.bitops import (MASK32, pack_bases_u32, popcount32,
-                                         unpack_bases_u32)
+                                         to_u32_bits, unpack_bases_u32)
 from scalce_tpu_torch.streams import qualities, qualities_host, seqs
+from scalce_tpu_torch.transfer import Fetched, Link, Staged
 
 _DELTA_K = 4          # candidate predecessors per read (2-bit selector)
 _EVEN = 0x55555555
@@ -147,7 +150,8 @@ def _delta_seq(codes_s: torch.Tensor, len_s: torch.Tensor,
     eqm = _shifted_eq(P, P[src], len_s, len_s[src], best_shift,
                       best_count >= 0)
     bitpos = 2 * (15 - col % 16)
-    match = ((eqm.repeat_interleave(16, dim=1) >> bitpos) & 1).bool()
+    match = ((eqm[:, :, None].expand(-1, -1, 16).reshape(B, -1) >> bitpos)
+             & 1).bool()
 
     # literals: valid non-copied bases, compacted row-major by a cumsum
     # scatter (non-literals land in a discarded trailing slot)
@@ -174,7 +178,9 @@ def _stage_a_prologue(seq_packed: torch.Tensor, lengths: torch.Tensor,
     codes = unpack_bases_u32(seq_packed)
     B, L = codes.shape
     exc = torch.zeros(B * L, dtype=torch.bool, device=codes.device)
-    exc[exc_pos] = True
+    # a scalar fill, where ``exc[exc_pos] = True`` copies the value from
+    # pageable memory and so waits for the card
+    exc.index_fill_(0, exc_pos, True)
     ck, cp, is_rc, codes_o, _ = core_match.find_cores_canonical(
         codes, lengths, exc.reshape(B, L), k, seed)
     return lengths, codes_o, ck, cp, is_rc
@@ -255,19 +261,30 @@ def _encode_core_mate2(seq_packed, qual, lengths, n_reads: int, exc_pos,
     return perm, delta, len_s
 
 
+def _delta_for_download(delta: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """The delta products as they cross to the host: the u32 literal
+    words as their 32 bits (int32), every word (the count in use is
+    known on the host only once ``n_lits`` lands)."""
+    return {**delta, "lit_packed": to_u32_bits(delta["lit_packed"])}
+
+
+def _delta_host(a: Dict[str, np.ndarray]) -> Dict:
+    """The delta products on the host as the reference's numpy dtypes,
+    from :func:`_delta_for_download`'s arrays: the literal words in
+    use."""
+    n_lits = int(a["n_lits"])
+    return {"mask_bits": a["mask_bits"], "shifts": a["shifts"],
+            "lit_packed": a["lit_packed"][:(n_lits + 15) // 16].view(
+                np.uint32),
+            "n_lits": n_lits, "pred_k": a["pred_k"], "rc_bits": a["rc_bits"]}
+
+
 def download_delta(delta: Dict[str, torch.Tensor]) -> Dict:
-    """D2H of the delta products as the reference's numpy dtypes; only
-    the literal words in use cross."""
-    n_lits = int(delta["n_lits"])
-    return {
-        "mask_bits": delta["mask_bits"].cpu().numpy(),
-        "shifts": delta["shifts"].cpu().numpy(),
-        "lit_packed": delta["lit_packed"][:(n_lits + 15) // 16]
-        .cpu().numpy().astype(np.uint32),
-        "n_lits": n_lits,
-        "pred_k": delta["pred_k"].cpu().numpy(),
-        "rc_bits": delta["rc_bits"].cpu().numpy(),
-    }
+    """Blocking D2H of the delta products as the reference's numpy
+    dtypes."""
+    return _delta_host({k: t.cpu().numpy()
+                        for k, t in _delta_for_download(delta).items()})
 
 
 @dataclasses.dataclass
@@ -286,32 +303,41 @@ class BlockEncoder:
     ``"cpu"`` for the plain torch versions), with the lossy quality map
     ``qual_map`` (uint8 ``[256]``; None or the identity: lossless).  With
     ``cfg.qual_on_device`` False the qualities never reach the device:
-    the host codec encodes them at assembly."""
+    the host codec encodes them at assembly.
+
+    A block goes through :meth:`upload` (any thread: the driver runs it
+    one block ahead), :meth:`dispatch` (the thread that owns the
+    device: every kernel of the block and its downloads, queued without
+    waiting) and :meth:`assemble` (any thread: waits for the downloads,
+    then the payload bytes on the host)."""
 
     def __init__(self, cfg: Config, device, qual_map=None):
         check_encode_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.link = Link(self.device)
         self.qual_map = device_qual_map(qual_map, self.device)
         self.qual_map_np = None if qual_map is None else np.asarray(
             qual_map, np.uint8)
 
-    def upload(self, block: ReadBlock) -> Dict[str, torch.Tensor]:
-        """H2D: host-packed 2-bit sequences, lengths, exception
-        positions and, when they are device-placed, qualities."""
-        packed = _pack2bit_np(block.seq).reshape(block.seq.shape[0], -1)
-        host = {"seq": packed, "len": block.lengths, "exc": block.exc_pos}
-        if self.cfg.qual_on_device:
-            host["qual"] = block.qual
-        return convert.from_reference(host, self.device)
+    def upload(self, block: ReadBlock) -> Staged:
+        """H2D through page-locked staging: host-packed 2-bit sequences,
+        lengths, exception positions and, when they are device-placed,
+        qualities.  The block's arrays are free again on return."""
+        with stage("upload"):
+            packed = _pack2bit_np(block.seq).reshape(block.seq.shape[0], -1)
+            host = {"seq": packed, "len": block.lengths,
+                    "exc": block.exc_pos}
+            if self.cfg.qual_on_device:
+                host["qual"] = block.qual
+            return self.link.upload(host)
 
-    def encode_device(self, block: ReadBlock, pre=None):
-        """Stages A and B; returns the device outputs ``assemble`` reads
-        (grids and counts None for host-placed qualities)."""
+    def encode_device(self, block: ReadBlock, pre: Optional[Staged] = None):
+        """Stages A and B of the block (uploaded now unless ``pre``
+        holds its :meth:`upload`); returns the device outputs (grids and
+        counts None for host-placed qualities)."""
         cfg = self.cfg
-        if pre is None:
-            with stage("upload"):
-                pre = self.upload(block)
+        pre = (pre if pre is not None else self.upload(block)).wait()
         with stage("stage A"):
             perm, codes_s, qual_s, len_s, ck_s, cp_s, rc_s = _device_stage_a(
                 pre["seq"], pre.get("qual"), pre["len"], block.n_reads,
@@ -322,16 +348,18 @@ class BlockEncoder:
                 cfg.qual_context_order, self.qual_map)
         return perm, delta, len_s, sym, ctx, counts
 
-    def encode_device_pair(self, b1: ReadBlock, b2: ReadBlock):
+    def encode_device_pair(self, b1: ReadBlock, b2: ReadBlock,
+                           pre1: Optional[Staged] = None,
+                           pre2: Optional[Staged] = None):
         """Paired-end device work: mate 1 as :meth:`encode_device`, then
-        mate 2 following mate 1's permutation.  Returns one tuple per
-        mate in :meth:`assemble`'s form (mate 2's holds mate 1's
+        mate 2 following mate 1's permutation (``pre1``/``pre2``: the
+        mates' uploads, else made now).  Returns one tuple per mate in
+        :meth:`encode_device`'s form (mate 2's holds mate 1's
         permutation, which its payload stores)."""
         cfg = self.cfg
-        out1 = self.encode_device(b1)
+        out1 = self.encode_device(b1, pre1)
         perm = out1[0]
-        with stage("upload"):
-            pre2 = self.upload(b2)
+        pre2 = (pre2 if pre2 is not None else self.upload(b2)).wait()
         with stage("stage A (mate 2)"):
             a2 = _device_stage_a2(pre2["seq"], pre2.get("qual"),
                                   pre2["len"], pre2["exc"], perm,
@@ -341,45 +369,68 @@ class BlockEncoder:
                 *a2, b2.n_reads, cfg.qual_context_order, self.qual_map)
         return out1, (perm, delta, a2[2], sym, ctx, counts)
 
-    def assemble_pair(self, b1: ReadBlock, b2: ReadBlock, devout
+    def dispatch(self, block: ReadBlock, pre: Optional[Staged] = None
+                 ) -> Fetched:
+        """Every kernel of one block and its downloads, queued:
+        :meth:`encode_device`, then :meth:`download`."""
+        return self.download(block.seq.shape, self.encode_device(block,
+                                                                 pre))[0]
+
+    def dispatch_pair(self, b1: ReadBlock, b2: ReadBlock,
+                      pre1: Optional[Staged] = None,
+                      pre2: Optional[Staged] = None) -> List[Fetched]:
+        """:meth:`dispatch` of a pair: both mates' downloads."""
+        return self.download(b1.seq.shape, *self.encode_device_pair(
+            b1, b2, pre1, pre2))
+
+    def download(self, shape, *devouts) -> List[Fetched]:
+        """The device half of assembly, for blocks of ``shape`` (B, L):
+        pass B of each device output's quality grids (K3 and the
+        compaction; none for host-placed qualities), then ONE queued
+        download of everything :meth:`assemble` reads, per output."""
+        cfg = self.cfg
+        B, L = shape
+        groups = []
+        for perm, delta, len_s, sym, ctx, counts in devouts:
+            g = {"perm": perm, "len_s": len_s, **_delta_for_download(delta)}
+            if sym is not None:
+                with stage("pass B"):
+                    g.update(qualities.pass_b(
+                        sym, ctx, counts, B, L, cfg.qual_context_order,
+                        T_target=cfg.qual_T_target))
+            groups.append(g)
+        with stage("download"):
+            return self.link.download(*groups)
+
+    def assemble_pair(self, b1: ReadBlock, b2: ReadBlock,
+                      fetched: Sequence[Fetched]
                       ) -> Tuple[EncodedBlock, EncodedBlock]:
-        out1, out2 = devout
-        return self.assemble(b1, out1), self.assemble(b2, out2)
+        f1, f2 = fetched
+        return self.assemble(b1, f1), self.assemble(b2, f2)
 
     def encode_block_pair(self, b1: ReadBlock, b2: ReadBlock
                           ) -> Tuple[EncodedBlock, EncodedBlock]:
         """Paired-end: mate 1 defines the permutation, mate 2 follows."""
-        return self.assemble_pair(b1, b2, self.encode_device_pair(b1, b2))
+        return self.assemble_pair(b1, b2, self.dispatch_pair(b1, b2))
 
-    def assemble(self, block: ReadBlock, devout) -> EncodedBlock:
-        """Pass B of the quality stream (on the device, or on the host
-        when the grids are None), download, payload bytes."""
-        perm, delta, len_s, sym, ctx, counts = devout
+    def assemble(self, block: ReadBlock, fetched: Fetched) -> EncodedBlock:
+        """The host half of assembly: wait for the block's downloads,
+        then its payload bytes; the quality stream's lanes are gathered
+        from the downloaded word matrix, or, for host-placed qualities,
+        the host codec encodes the block's qualities through the sort
+        permutation and the lossy map (the reference's ``_assemble``).
+        Reads nothing of the device."""
         cfg = self.cfg
         B, L = block.seq.shape
-        enc_q = None
-        if sym is not None:
+        a = fetched.wait()
+        perm_np, len_np = a["perm"], a["len_s"]
+        delta_np = _delta_host(a)
+        if "packed" in a:
             with stage("pass B"):
-                enc_q = qualities.encode_from_grids(
-                    sym, ctx, counts, B, L, cfg.qual_context_order,
-                    T_target=cfg.qual_T_target)
-        return self.assemble_encoded(block, perm, delta, len_s, enc_q)
-
-    def assemble_encoded(self, block: ReadBlock, perm, delta, len_s,
-                         enc_q: Optional[qualities.EncodedQuals]
-                         ) -> EncodedBlock:
-        """Download and payload bytes, given the block's encoded quality
-        stream (the data-parallel path encodes a group's at once), or
-        None for host-placed qualities: the host codec encodes the
-        block's qualities through the sort permutation and the lossy map
-        (the reference's ``_assemble``)."""
-        cfg = self.cfg
-        B, L = block.seq.shape
-        with stage("delta D2H"):
-            perm_np = perm.cpu().numpy()
-            delta_np = download_delta(delta)
-            len_np = len_s.cpu().numpy()
-        if enc_q is None:
+                enc_q = qualities.encoded_from_host(
+                    a, B, L, qualities.pick_T(B, L, cfg.qual_T_target),
+                    cfg.qual_context_order)
+        else:
             with stage("quality encode (host)"):
                 enc_q = qualities_host.encode_host(
                     block.qual, len_np, cfg.qual_context_order,
@@ -410,7 +461,7 @@ class BlockEncoder:
             "n": n_payload, "r": r_payload, "q": q_payload})
 
     def encode_block(self, block: ReadBlock) -> EncodedBlock:
-        return self.assemble(block, self.encode_device(block))
+        return self.assemble(block, self.dispatch(block))
 
     def _encode_names(self, block: ReadBlock) -> bytes:
         """Names stay in original order (copy of the reference's)."""

@@ -1,34 +1,44 @@
 """Where the time goes: per-stage wall times of one compress and one
-keep-order decompress through the port's drivers, and the device's busy
-share under ``torch.profiler``, for a single-end file, a pair (``-r``),
-the single-end file lossy (``-p 30``) and the single-end file through
+keep-order decompress through the port's drivers at ``-T 1``, their
+walls and peak device memory at ``-T 1``, ``-T 4`` and Config's default
+threads, and the device's busy share under ``torch.profiler`` at ``-T 1``
+and ``-T 4``, for a single-end file, a pair (``-r``), the single-end
+file lossy (``-p 30``) and the single-end file through
 ``--data-parallel`` (one group per block on one card); and the
 data-parallel pass B's two functions, ``qualities.group_histogram`` and
 ``qualities.group_encode``, each timed whole (what builds its kernel's
 inputs included) on a group of 4 blocks and of 1.
 
     python -m scalce_tpu_torch.stage_profile     # repo root, on the card
+    python -m scalce_tpu_torch.stage_profile --dp-cards   # on 4 cards
 
 The inputs are ``chip_smoke.py``'s (phases 4, 7 and 8): the main file
 (1,148,576 x 100 bp, ``synth_fastq(seed=42, genome_len=1_000_000,
 n_rate=0.001)``) and a pair of such files (``synth_pair``, same
-parameters), under the slice's Config; :func:`profile` also takes fewer
-reads and the CPU.  Runs, per case and in order: a warm-up (first-use
-costs: library load, CUDA context); an untimed run whose wall clock is
-the end-to-end number; a run with every stage synchronized and timed
-(:mod:`scalce_tpu_torch.timing`); on CUDA, a run under ``torch.profiler``
-whose device events give the busy time (the union of their intervals)
-and the device time per kernel or copy.  Each decompress must give the
-input bytes back (lossy: the names and sequences, and qualities of the
-input's lengths).  The last line of the output is one JSON object with
-every number printed.  The script uses only entry points that the
-port's earlier versions share, so it can also time a parent checkout:
-copy it there and run it from that checkout's root.
+parameters), under the slice's Config (``threads=1``); :func:`profile`
+also takes fewer reads and the CPU.  Runs, per case and in order: a
+warm-up (first-use costs: library load, CUDA context); an untimed run
+whose wall clock is the end-to-end number, then one at ``-T 4`` and one
+at the default; a run at ``-T 1`` with every stage synchronized and
+timed (:mod:`scalce_tpu_torch.timing`: per-stage seconds are defined at
+``-T 1`` only); on CUDA, a run under ``torch.profiler`` at ``-T 1`` and
+one at ``-T 4``, whose device events give the busy time (the union of
+their intervals) and the device time per kernel and per kind of copy
+(to or from pageable or page-locked host memory).  Each decompress must
+give the input bytes back (lossy: the names and sequences, and
+qualities of the input's lengths).  The last line of the output is one
+JSON object with every number printed.  The script uses only entry
+points that the port's earlier versions share (a version that ignores
+``threads`` runs every case serially), so it can also time a parent
+checkout: copy it there and run it from that checkout's root.
+``--dp-cards`` times the ``--data-parallel`` compress at ``-T 4`` over
+every visible card against one card (:func:`dp_cards`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import os
 import subprocess
@@ -75,22 +85,29 @@ def _check(got: bytes, want: bytes, lossy: bool) -> None:
 
 
 def _run(tmp: str, case: str, srcs: Sequence[str], datas: Sequence[bytes],
-         block_reads: int, device, staged: bool = False) -> Dict[str, Dict]:
-    """One compress and one keep-order decompress of ``case``: each one's
-    wall seconds and, when ``staged``, its seconds per stage (the rest of
-    the wall -- setup, container open and close -- is ``other``)."""
+         block_reads: int, device, staged: bool = False,
+         threads: Optional[int] = 1) -> Dict[str, Dict]:
+    """One compress and one keep-order decompress of ``case`` on
+    ``threads`` workers (None: Config's default): each one's wall seconds,
+    on CUDA its peak device memory, and, when ``staged``, its seconds per
+    stage (the rest of the wall -- setup, container open and close, less
+    the parse's overlap with the other stages -- is ``other``)."""
     extra = CASES[case]
     out = os.path.join(tmp, case)
     dec = os.path.join(tmp, case + "_d")
     first = ".00_1.scalcen" if extra.get("paired") else ".00.scalcen"
+    t = {} if threads is None else {"threads": threads}
+    base = {k: v for k, v in SLICE.items() if k != "threads"}
     cfgs = {"compress": Config(inputs=tuple(srcs), output=out,
-                               **{**SLICE, "block_reads": block_reads},
+                               **{**base, "block_reads": block_reads, **t},
                                **extra),
             "decompress": Config(mode="decompress", inputs=(out + first,),
                                  output=dec, keep_order=True,
-                                 qual_on_device=True)}
+                                 qual_on_device=True, **t)}
     result = {}
     for name, cfg in cfgs.items():
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
         with timing.collect(device) if staged else \
                 contextlib.nullcontext({}) as stages:
             t0 = time.perf_counter()
@@ -99,7 +116,11 @@ def _run(tmp: str, case: str, srcs: Sequence[str], datas: Sequence[bytes],
         stages = dict(stages)
         if staged:
             stages["other"] = wall - sum(stages.values())
-        result[name] = {"wall_s": wall, "stages_s": stages}
+        result[name] = {"wall_s": wall, "stages_s": stages,
+                        "threads": cfg.threads}
+        if device.type == "cuda":
+            result[name]["peak_bytes"] = torch.cuda.max_memory_allocated(
+                device)
     paths = [f"{dec}_{m}.fastq" for m in (1, 2)] if extra.get("paired") \
         else [dec + ".fastq"]
     for path, data in zip(paths, datas):
@@ -122,12 +143,16 @@ def _union_s(spans: List[tuple]) -> float:
 
 
 def _kind(name: str) -> str:
-    """Device event -> one of K1-K6, ``copies`` or ``torch kernels``."""
+    """Device event -> one of K1-K6, ``pageable copies`` (to or from
+    pageable host memory), ``pinned copies`` (page-locked), ``other
+    copies`` (device to device, memsets) or ``torch kernels``."""
     for k, fn in PORT_KERNELS.items():
         if fn in name:
             return k
-    return "copies" if name.startswith(("Memcpy", "Memset")) \
-        else "torch kernels"
+    if name.startswith(("Memcpy", "Memset")):
+        return "pageable copies" if "Pageable" in name else \
+            "pinned copies" if "Pinned" in name else "other copies"
+    return "torch kernels"
 
 
 def device_busy(fn) -> Optional[Dict]:
@@ -159,10 +184,11 @@ def device_busy(fn) -> Optional[Dict]:
             "top_device_s": dict(top)}
 
 
-def _profiled(tmp, case, srcs, datas, block_reads, device) -> Optional[Dict]:
+def _profiled(tmp, case, srcs, datas, block_reads, device,
+              threads: int = 1) -> Optional[Dict]:
     """:func:`device_busy` of one compress + decompress of ``case``."""
     return device_busy(lambda: _run(tmp, case, srcs, datas, block_reads,
-                                    device))
+                                    device, threads=threads))
 
 
 def dp_functions(path: str, device, iters: int = 10) -> Dict[str, float]:
@@ -207,35 +233,86 @@ def dp_functions(path: str, device, iters: int = 10) -> Dict[str, float]:
     return out
 
 
+def dp_cards(reads: int = 1_148_576, turns: int = 2) -> Dict:
+    """The ``--data-parallel`` compress of the main file (as
+    :func:`profile` makes it) at ``-T 4`` over every visible card and
+    over ``cuda:0`` alone, in turns (all, one, one, all, ...): each
+    run's wall seconds; every triplet must equal the first."""
+    card = "; ".join(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines())
+    n = torch.cuda.device_count()
+    walls: Dict[str, List[float]] = {"cuda": [], "cuda:0": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "main.fastq")
+        with open(src, "wb") as fh:
+            fh.write(synth_fastq(reads, 100, seed=42, genome_len=1_000_000,
+                                 n_rate=0.001))
+        want = None
+        order = ["cuda", "cuda:0", "cuda:0", "cuda"] * turns
+        for i, dev in enumerate(["cuda:0"] + order):     # first: warm-up
+            out = os.path.join(tmp, f"dp{i}")
+            t0 = time.perf_counter()
+            driver.compress(Config(inputs=(src,), output=out,
+                                   data_parallel=True,
+                                   **{**SLICE, "threads": 4}), dev)
+            for d in range(n):
+                torch.cuda.synchronize(d)
+            wall = time.perf_counter() - t0
+            got = [open(p, "rb").read() for p in
+                   sorted(glob.glob(out + ".*.scalce[nrq]"))]
+            want = want or got
+            if got != want:
+                raise AssertionError(f"--data-parallel on {dev}: triplet "
+                                     f"differs")
+            if i:
+                walls[dev].append(wall)
+    for dev, ws in walls.items():
+        cards = n if dev == "cuda" else 1
+        print(f"--data-parallel -T 4 compress on {dev} ({cards} card(s)): "
+              + ", ".join(f"{w:.3f}" for w in ws) + f" s ({card} x {n})")
+    result = {"device": card, "cards": n, "reads": reads, "walls_s": walls}
+    print(json.dumps(result))
+    return result
+
+
 def _report(case: str, res: Dict, card: str) -> None:
     """Print one case's walls, stage tables and device busy share."""
     mb = res["input_bytes"] / 1e6
     for name in ("compress", "decompress"):
-        wall = res["untimed"][name]["wall_s"]
-        print(f"{case} {name}: {wall:.3f} s = {mb / wall:.2f} MB/s ({card})")
+        walls = []
+        for key in ("untimed", "untimed_T4", "untimed_Tdef"):
+            r = res[key][name]
+            peak = f", peak {r['peak_bytes'] / 2**30:.3f} GiB" \
+                if "peak_bytes" in r else ""
+            walls.append(f"-T {r['threads']} {r['wall_s']:.3f} s = "
+                         f"{mb / r['wall_s']:.2f} MB/s{peak}")
+        print(f"{case} {name}: {'; '.join(walls)} ({card})")
         staged = res["staged"][name]
         print(f"  staged run {staged['wall_s']:.3f} s:")
         for st, s in sorted(staged["stages_s"].items(),
                             key=lambda kv: -kv[1]):
             print(f"    {st:<18} {s:8.3f} s "
                   f"{100 * s / staged['wall_s']:6.1f}%")
-    prof = res.get("profiled")
-    if prof is not None:
-        busy = prof["busy_s"]
-        untimed = sum(r["wall_s"] for r in res["untimed"].values())
-        print(f"{case} profiled run {prof['wall_s']:.3f} s: device busy "
-              f"{busy:.4f} s = {100 * busy / prof['wall_s']:.1f}% of the "
-              f"profiled wall, {100 * busy / untimed:.1f}% of the untimed "
-              f"run's {untimed:.3f} s ({prof['device_events']} device "
-              f"events)")
-        for name, s in sorted(prof["by_kind_s"].items()):
-            print(f"    {s:8.4f} s  {name}")
-        print("  largest device events:")
-        for name, s in prof["top_device_s"].items():
-            print(f"    {s:8.4f} s  {name}")
-    elif "profiled" in res:
-        print(f"{case} profiled run: no device events recorded (busy share "
-              f"not measured)")
+    for key, T in (("profiled", "untimed"), ("profiled_T4", "untimed_T4")):
+        prof = res.get(key)
+        if prof is not None:
+            busy = prof["busy_s"]
+            untimed = sum(r["wall_s"] for r in res[T].values())
+            print(f"{case} {key} run {prof['wall_s']:.3f} s: device busy "
+                  f"{busy:.4f} s = {100 * busy / prof['wall_s']:.1f}% of "
+                  f"the profiled wall, {100 * busy / untimed:.1f}% of the "
+                  f"untimed run's {untimed:.3f} s ({prof['device_events']} "
+                  f"device events)")
+            for name, s in sorted(prof["by_kind_s"].items()):
+                print(f"    {s:8.4f} s  {name}")
+            print("  largest device events:")
+            for name, s in prof["top_device_s"].items():
+                print(f"    {s:8.4f} s  {name}")
+        elif key in res:
+            print(f"{case} {key} run: no device events recorded (busy "
+                  f"share not measured)")
 
 
 def profile(device="cuda", reads: int = 1_148_576,
@@ -269,9 +346,12 @@ def profile(device="cuda", reads: int = 1_148_576,
             res = {"input_bytes": sum(map(len, files[key]))}
             _run(*args)                                       # warm-up
             res["untimed"] = _run(*args)
+            res["untimed_T4"] = _run(*args, threads=4)
+            res["untimed_Tdef"] = _run(*args, threads=None)
             res["staged"] = _run(*args, staged=True)
             if device.type == "cuda":
                 res["profiled"] = _profiled(*args)
+                res["profiled_T4"] = _profiled(*args, threads=4)
             result["cases"][case] = res
             _report(case, res, card)
         if device.type == "cuda":
@@ -284,4 +364,8 @@ def profile(device="cuda", reads: int = 1_148_576,
 
 
 if __name__ == "__main__":
-    profile()
+    import sys
+    if sys.argv[1:] == ["--dp-cards"]:
+        dp_cards()
+    else:
+        profile()

@@ -4,9 +4,11 @@
 Pass A (:func:`sym_ctx_hist`) builds the symbol and context grids and
 their histogram from the quality bytes, through the lossy map if any
 (kernel K2, one launch); the tables are normalized on the device;
-pass B (:func:`encode_from_grids`) rANS-encodes the grids (kernel K3)
-and compacts the emitted words; :func:`decode_batch` decodes D blocks'
-quality grids in one launch (kernel K4).  A data-parallel group of D
+pass B (:func:`pass_b`) rANS-encodes the grids (kernel K3) and compacts
+the emitted words, and :func:`encoded_from_host` gathers each lane's
+words once they are on the host; :func:`decode_batch_dispatch` decodes
+D blocks' quality grids in one launch (kernel K4) and queues their
+download, which :func:`decode_batch_fetch` waits for.  A data-parallel group of D
 blocks takes the generic coder path instead: one histogram
 (:func:`group_histogram`, kernel K6) and one encode
 (:func:`group_encode`, kernel K5), each on the group's grids as K2 wrote
@@ -36,13 +38,16 @@ import numpy as np
 import torch
 
 from scalce_tpu_torch import container, convert
+from scalce_tpu_torch.device import resolve_device
 from scalce_tpu_torch.io.fastq import ragged_gather, ragged_scatter
 from scalce_tpu_torch.models import entropy
 from scalce_tpu_torch.ops import hist, rans
+from scalce_tpu_torch.ops.bitops import to_u32_bits
 from scalce_tpu_torch.ops.histogram import grid_histogram
 from scalce_tpu_torch.ops.rans_decode import decode_quals
 from scalce_tpu_torch.ops.rans_encode import encode_scan
 from scalce_tpu_torch.ops.rans_encode_flat import encode_grids
+from scalce_tpu_torch.transfer import Fetched, Link
 
 N_SYMS = 94          # printable FASTQ quality range
 QUAL_OFFSET = 33
@@ -202,15 +207,25 @@ class EncodedQuals:
     order: int
 
 
-def encode_from_grids(sym: torch.Tensor, ctx: torch.Tensor,
-                      counts: torch.Tensor, B: int, L: int, order: int,
-                      T_target: int = 1024) -> EncodedQuals:
-    """Pass B: device tables, rANS encode (K3), compaction, download."""
+def pass_b(sym: torch.Tensor, ctx: torch.Tensor, counts: torch.Tensor,
+           B: int, L: int, order: int, T_target: int = 1024
+           ) -> Dict[str, torch.Tensor]:
+    """Pass B on the device: tables, rANS encode (K3), compaction; the
+    outputs as :func:`for_download` narrows them."""
     T = pick_T(B, L, T_target)
     freq, cum = entropy.device_normalize(counts, n_contexts(order), N_SYMS)
     states, words, emits = encode_scan(sym, ctx, freq, cum, T, order)
     packed, wcounts = rans.compact_emissions(words, emits)
-    return finish_encoded(freq, states, packed, wcounts, B, L, T, order)
+    return for_download(freq, states, packed, wcounts)
+
+
+def encode_from_grids(sym: torch.Tensor, ctx: torch.Tensor,
+                      counts: torch.Tensor, B: int, L: int, order: int,
+                      T_target: int = 1024) -> EncodedQuals:
+    """Pass B: device tables, rANS encode (K3), compaction, download."""
+    out = pass_b(sym, ctx, counts, B, L, order, T_target)
+    return encoded_from_host({k: t.cpu().numpy() for k, t in out.items()},
+                             B, L, pick_T(B, L, T_target), order)
 
 
 def group_encode(sym: torch.Tensor, ctx: torch.Tensor, counts: torch.Tensor,
@@ -231,25 +246,39 @@ def group_encode(sym: torch.Tensor, ctx: torch.Tensor, counts: torch.Tensor,
             wcounts.reshape(D, N))
 
 
+def for_download(freq: torch.Tensor, states: torch.Tensor,
+                 packed: torch.Tensor, wcounts: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+    """Pass B's outputs as they cross to the host, narrowed on the
+    device: the u32 tables and states as their 32 bits (int32), the u16
+    words ``[N, T]`` as their 16 bits (int16), the word counts (int32).
+    The whole word matrix crosses (the words in use are each lane's
+    first ``wcounts``, known on the host only once they land)."""
+    return {"freq": to_u32_bits(freq), "states": to_u32_bits(states),
+            "packed": packed.to(torch.int16), "wcounts": wcounts}
+
+
+def encoded_from_host(a: Dict[str, np.ndarray], B: int, L: int, T: int,
+                      order: int) -> EncodedQuals:
+    """Host half of pass B, from :func:`for_download`'s arrays on the
+    host: the lanes' words by a ragged gather."""
+    wcounts = a["wcounts"].astype(np.int64)
+    packed = a["packed"].view(np.uint16)
+    row_starts = np.arange(packed.shape[0], dtype=np.int64) * packed.shape[1]
+    words = ragged_gather(packed.reshape(-1), row_starts, wcounts)
+    return EncodedQuals(freq=a["freq"].view(np.uint32),
+                        states=a["states"].view(np.uint32),
+                        counts=wcounts, words=words, B=B, L=L, T=T,
+                        order=order)
+
+
 def finish_encoded(freq: torch.Tensor, states: torch.Tensor,
                    packed: torch.Tensor, wcounts: torch.Tensor, B: int,
                    L: int, T: int, order: int) -> EncodedQuals:
-    """Download half of pass B: the first W columns of the packed word
-    matrix (W = the reference's floored power-of-two bucket), then a
-    host ragged gather per lane."""
-    wcounts = wcounts.cpu().numpy().astype(np.int64)
-    W = max(64, T // 8)
-    wmax = int(wcounts.max()) if wcounts.size else 0
-    while W < wmax:
-        W <<= 1
-    packed = packed[:, :min(W, packed.shape[1])].cpu().numpy().astype(
-        np.uint16)
-    row_starts = np.arange(packed.shape[0], dtype=np.int64) * packed.shape[1]
-    words = ragged_gather(packed.reshape(-1), row_starts, wcounts)
-    return EncodedQuals(freq=freq.cpu().numpy().astype(np.uint32),
-                        states=states.cpu().numpy().astype(np.uint32),
-                        counts=wcounts, words=words, B=B, L=L, T=T,
-                        order=order)
+    """Download and host half of pass B (blocking)."""
+    a = for_download(freq, states, packed, wcounts)
+    return encoded_from_host({k: t.cpu().numpy() for k, t in a.items()},
+                             B, L, T, order)
 
 
 def _qual_from_syms(syms: torch.Tensor, lengths: torch.Tensor, T: int,
@@ -262,9 +291,9 @@ def _qual_from_syms(syms: torch.Tensor, lengths: torch.Tensor, T: int,
     return torch.where(valid, grid + QUAL_OFFSET, 0).to(torch.uint8)
 
 
-def decode_inputs(encs: List[EncodedQuals], lengths_list, device
-                  ) -> Dict[str, torch.Tensor]:
-    """Stack D blocks' streams into K4's inputs on ``device``: states
+def decode_inputs_host(encs: List[EncodedQuals], lengths_list
+                       ) -> Dict[str, np.ndarray]:
+    """Stack D blocks' streams into K4's inputs on the host: states
     ``[D, N]``, words ``[D, N, W]`` (u16 bits in int16, half the bytes
     to upload of the int32 widening; W = the widest power-of-two bucket of
     the group, floored at max(64, T/8)), freq ``[D, C, 94]``, lengths
@@ -281,24 +310,46 @@ def decode_inputs(encs: List[EncodedQuals], lengths_list, device
     for d, e in enumerate(encs):
         ragged_scatter(words[d].reshape(-1), np.arange(N, dtype=np.int64) * W,
                        e.words, e.counts.astype(np.int64))
-    return convert.from_reference({
+    return {
         "states": np.stack([e.states for e in encs]),
         "words": words.view(np.int16),
         "freq": np.stack([e.freq.reshape(-1, N_SYMS) for e in encs]),
         "lengths": np.stack([np.asarray(ln, np.int32)
                              for ln in lengths_list]),
-    }, device)
+    }
+
+
+def decode_inputs(encs: List[EncodedQuals], lengths_list, device
+                  ) -> Dict[str, torch.Tensor]:
+    """:func:`decode_inputs_host` on ``device`` (a blocking copy)."""
+    return convert.from_reference(decode_inputs_host(encs, lengths_list),
+                                  device)
+
+
+def decode_batch_dispatch(encs: List[EncodedQuals], lengths_list,
+                          link: Link) -> Fetched:
+    """ONE K4 launch for several blocks' quality grids, which it writes
+    in their final uint8 form: the inputs go up and the grids come down
+    through ``link``'s copy streams.  Returns the queued download; pair
+    with :func:`decode_batch_fetch`, which a host worker may run while
+    the caller launches the next group."""
+    e0 = encs[0]
+    x = link.upload(decode_inputs_host(encs, lengths_list)).wait()
+    qual = decode_quals(x["states"], x["words"], x["freq"], x["lengths"],
+                        e0.order, e0.T, e0.L)
+    return link.download({"qual": qual.reshape(len(encs), e0.B, e0.L)})[0]
+
+
+def decode_batch_fetch(fetched: Fetched) -> List[np.ndarray]:
+    """The uint8 ``[B, L]`` grids of :func:`decode_batch_dispatch`."""
+    return list(fetched.wait()["qual"])
 
 
 def decode_batch(encs: List[EncodedQuals], lengths_list, device
                  ) -> List[np.ndarray]:
-    """Decode several blocks' quality grids in ONE K4 launch, which
-    writes them in their final uint8 form."""
-    e0 = encs[0]
-    x = decode_inputs(encs, lengths_list, device)
-    qual = decode_quals(x["states"], x["words"], x["freq"], x["lengths"],
-                        e0.order, e0.T, e0.L)
-    return list(qual.reshape(len(encs), e0.B, e0.L).cpu().numpy())
+    """Decode several blocks' quality grids in ONE K4 launch."""
+    return decode_batch_fetch(decode_batch_dispatch(
+        encs, lengths_list, Link(resolve_device(device))))
 
 
 # ---------------------------------------------------------------------------

@@ -413,3 +413,150 @@ def test_card_lossy_hist_allreduce(cuda):
     want = np.bincount(np.clip(qual.astype(np.int64) - 33, 0, 93)[valid],
                        minlength=94)
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _bounded(fn, *args, timeout: float = 120):
+    """``fn(*args)`` on a thread joined within ``timeout`` seconds: its
+    result, or its exception raised here; fails on expiry."""
+    import threading
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn(*args)
+        except BaseException as e:       # handed to the test thread
+            out["error"] = e
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout)
+    assert not t.is_alive(), f"{fn.__name__} still running after {timeout} s"
+    if "error" in out:
+        raise out["error"]
+    return out.get("value")
+
+
+def _pipeline_inputs(tmp_path, paired):
+    from scalce_tpu_torch.utils.synth import synth_fastq, synth_pair
+    datas = synth_pair(9 * 256 + 70, 100, seed=12, var_len=True,
+                       n_rate=0.01) if paired else (
+        synth_fastq(9 * 256 + 70, 100, seed=11, var_len=True, n_rate=0.01),)
+    paths = tuple(os.path.join(tmp_path, f"in{i}.fastq")
+                  for i in range(len(datas)))
+    for path, data in zip(paths, datas):
+        with open(path, "wb") as f:
+            f.write(data)
+    return paths, datas
+
+
+@pytest.mark.parametrize("case", ["single", "paired", "data_parallel"])
+def test_card_pipelined_matches_one_thread(cuda, tmp_path, case):
+    """10 blocks (more than -T 4 keeps pending) on the card at -T 1 and
+    -T 4, and on the CPU: the same triplets, and keep-order decompress
+    at -T 4 gives the input back."""
+    import glob
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.pipeline import driver
+    paths, datas = _pipeline_inputs(tmp_path, case == "paired")
+    kw = dict(inputs=paths, paired=case == "paired", block_reads=256,
+              max_read_len=128, core_on_device=True, delta_on_device=True,
+              qual_on_device=True, qual_context_order=1, backend="gz",
+              data_parallel=case == "data_parallel")
+    outs = {}
+    for dev, t in (("cuda", 1), ("cuda", 4), ("cpu", 1)):
+        prefix = os.path.join(tmp_path, f"{dev}{t}")
+        _bounded(driver.compress, Config(output=prefix, threads=t, **kw), dev)
+        outs[dev, t] = [open(p, "rb").read() for p in
+                        sorted(glob.glob(prefix + ".*.scalce[nrq]"))]
+    assert outs["cuda", 1] == outs["cuda", 4] == outs["cpu", 1]
+    first = ".00_1.scalcen" if case == "paired" else ".00.scalcen"
+    out = os.path.join(tmp_path, "d")
+    _bounded(driver.decompress, Config(
+        mode="decompress", inputs=(os.path.join(tmp_path, "cuda4") + first,),
+        output=out, keep_order=True, qual_on_device=True, threads=4), "cuda")
+    got = [open(p, "rb").read() for p in (
+        [f"{out}_{m}.fastq" for m in (1, 2)] if case == "paired"
+        else [out + ".fastq"])]
+    assert got == list(datas)
+
+
+def test_card_transfers_are_page_locked(cuda, tmp_path):
+    """The block upload's staging tensors, the block's downloads and the
+    K4 grid's download are in page-locked host memory."""
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.io import fastq
+    from scalce_tpu_torch.pipeline.encode import BlockEncoder
+    (path,), _ = _pipeline_inputs(tmp_path, False)
+    block = next(fastq.iter_blocks(path, 256, 128))
+    enc = BlockEncoder(Config(inputs=(path,), block_reads=256,
+                              max_read_len=128, core_on_device=True,
+                              delta_on_device=True, qual_on_device=True,
+                              qual_context_order=1), cuda)
+    staged = enc.upload(block)
+    assert set(staged.host) == {"seq", "len", "exc", "qual"}
+    assert all(h.is_pinned() for h in staged.host.values())
+    fetched = enc.dispatch(block, staged).wait()
+    assert {"perm", "lit_packed", "packed", "wcounts"} <= set(fetched)
+    assert all(torch.from_numpy(a).is_pinned() for a in fetched.values())
+    eb = enc.assemble(block, enc.dispatch(block))
+    enc_q = qualities.parse(eb.payloads["q"])
+    grid = qualities.decode_batch_dispatch([enc_q], [fetched["len_s"]],
+                                           enc.link).wait()["qual"]
+    assert torch.from_numpy(grid).is_pinned()
+
+
+def test_card_kernel_error_propagates(cuda, tmp_path, monkeypatch):
+    """A kernel launch that fails in the middle of a -T 4 compress raises
+    out of the driver, and every thread the driver started stops."""
+    import threading
+    import time
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.ops import _cuda
+    from scalce_tpu_torch.pipeline import driver
+    (path,), _ = _pipeline_inputs(tmp_path, False)
+    launch = _cuda.launch
+    calls = []
+
+    def failing(name, *a):
+        if name == "scalce_hist_ctx":
+            calls.append(name)
+            if len(calls) == 4:
+                raise RuntimeError("scalce_hist_ctx: CUDA error 700")
+        return launch(name, *a)
+    monkeypatch.setattr(_cuda, "launch", failing)
+    before = threading.active_count()
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        _bounded(driver.compress, Config(
+            inputs=(path,), output=os.path.join(tmp_path, "o"), threads=4,
+            block_reads=256, max_read_len=128, core_on_device=True,
+            delta_on_device=True, qual_on_device=True, qual_context_order=1,
+            backend="gz"), "cuda")
+    deadline = time.monotonic() + 10
+    while threading.active_count() > before and time.monotonic() < deadline:
+        time.sleep(0.02)
+    assert threading.active_count() <= before
+
+
+def test_card_pipeline_never_blocks_on_the_card(cuda, tmp_path):
+    """A -T 4 compress and --qual-device decompress under
+    ``torch.cuda.set_sync_debug_mode("error")``: no operation that waits
+    for the card (a pageable copy, ``.item()``, ``.cpu()``, a stream
+    synchronize) runs on any thread; the host halves wait on the
+    downloads' events only."""
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.pipeline import driver
+    paths, datas = _pipeline_inputs(tmp_path, False)
+    kw = dict(block_reads=256, max_read_len=128, core_on_device=True,
+              delta_on_device=True, qual_on_device=True,
+              qual_context_order=1, backend="gz", threads=4)
+    out = os.path.join(tmp_path, "o")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _bounded(driver.compress, Config(inputs=paths, output=out, **kw),
+                 "cuda")
+        _bounded(driver.decompress, Config(
+            mode="decompress", inputs=(out + ".00.scalcen",),
+            output=os.path.join(tmp_path, "d"), keep_order=True,
+            qual_on_device=True, threads=4), "cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert open(os.path.join(tmp_path, "d.fastq"), "rb").read() == datas[0]

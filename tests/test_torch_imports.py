@@ -246,6 +246,7 @@ COPIES = {"config.py": "config.py", "container.py": "container.py",
           "io/__init__.py": "io/__init__.py", "io/fastq.py": "io/fastq.py",
           "io/backend.py": "io/backend.py",
           "native/__init__.py": "native/__init__.py",
+          "pipeline/threads.py": "pipeline/driver.py",
           "streams/names.py": "streams/names.py",
           "streams/qualities_host.py": "streams/qualities.py",
           "utils/__init__.py": "utils/__init__.py",
@@ -261,6 +262,18 @@ def test_copy_names_its_original_in_its_header(copy):
     original = "scalce_tpu/" + COPIES[copy]
     assert head.startswith("# Copy of ") and original in head, head
     assert os.path.exists(os.path.join(REPO, original))
+
+
+def test_async_writer_is_the_references_verbatim():
+    """The decompress driver's ordered writer is the reference's code,
+    statement for statement."""
+    def definition(path):
+        tree = ast.parse(open(os.path.join(REPO, path)).read(), path)
+        (node,) = [n for n in tree.body
+                   if getattr(n, "name", None) == "_AsyncWriter"]
+        return ast.dump(node)
+    assert definition("scalce_tpu_torch/pipeline/threads.py") == \
+        definition("scalce_tpu/pipeline/driver.py")
 
 
 def test_native_library_is_the_ports_own():

@@ -14,7 +14,7 @@ from scalce_tpu_torch import stage_profile, timing
 torch.set_num_threads(1)
 
 COMPRESS_STAGES = {"parse FASTQ", "upload", "stage A", "stage B", "pass B",
-                   "quality payload", "delta D2H", "seqs.payload",
+                   "quality payload", "download", "seqs.payload",
                    "names payload", "write", "other"}
 DECOMPRESS_STAGES = {"seqs.parse", "qualities.parse", "quality decode",
                      "_finish", "render FASTQ", "write", "other"}
@@ -58,8 +58,9 @@ def test_stage_profile_cpu(capsys):
                        if k != "other")
             assert sum(run["stages_s"].values()) \
                 == pytest.approx(run["wall_s"])
-            assert res["untimed"][name]["wall_s"] > 0
-            assert res["untimed"][name]["stages_s"] == {}
+            for run in ("untimed", "untimed_T4", "untimed_Tdef"):
+                assert res[run][name]["wall_s"] > 0
+                assert res[run][name]["stages_s"] == {}
     assert result["cases"]["paired"]["input_bytes"] \
         > result["cases"]["single"]["input_bytes"]
 
@@ -97,8 +98,12 @@ def test_union_of_device_spans(spans, want):
     ("rans_decode_kernel(unsigned int const*, ...)", "K4"),
     ("void (anonymous namespace)::rans_encode_flat_kernel<true>(...)", "K5"),
     ("void (anonymous namespace)::histogram_kernel<true, true>(...)", "K6"),
-    ("Memcpy DtoH (Device -> Pageable)", "copies"),
-    ("Memset (Device)", "copies"),
+    ("Memcpy DtoH (Device -> Pageable)", "pageable copies"),
+    ("Memcpy HtoD (Pageable -> Device)", "pageable copies"),
+    ("Memcpy HtoD (Pinned -> Device)", "pinned copies"),
+    ("Memcpy DtoH (Device -> Pinned)", "pinned copies"),
+    ("Memcpy DtoD (Device -> Device)", "other copies"),
+    ("Memset (Device)", "other copies"),
     ("void at::native::vectorized_gather_kernel<16, long>(...)",
      "torch kernels"),
 ])
