@@ -14,7 +14,10 @@ Phases (the first failure exits non-zero; no phase is caught):
      block, with and without the histogram (timed at order 1: lossless,
      through the map, grids only); K3 and K4 decode_quals in the
      decompress path's groups of D = 4 and 1 at order 1 (K3 and K4, with
-     decode_scan, also at orders 2 and 3); K5 and K6 from the grids
+     decode_scan, also at orders 2 and 3); K1 also through a k = 12
+     rank LUT (dict_mode lut, 64 MB: its bound counts the distinct
+     32-byte table sectors the block's lookups touch); K5 and K6 from
+     the grids
      that the data-parallel stage 1 leaves for the file's first 4 blocks
      ([4, 262144, 128] int64, 286,136 cells; K5: T = 2048, 65,536 lanes)
      and for its first block alone, and K6's flat entry at the lossy
@@ -64,14 +67,28 @@ Phases (the first failure exits non-zero; no phase is caught):
      peak device memory beside ``-T 1``'s, the main file at Config()'s
      default threads (cores + 2), and the ``-T 4`` compress's device busy
      time with its copies split into pageable and page-locked
+ 11. placements and dictionaries: the bare command's Config under host
+     core (``--core-placement host``: no kernel, no device memory),
+     AUTO (``--core-placement auto``: prints the link probe's MB/s),
+     host delta (K1 once per block, no device delta) and
+     ``--data-parallel`` host delta must each write phase 9's triplet;
+     the pair under host delta (host qualities at order 1) phase 7's;
+     ``dict_mode`` lut and lcp at core k 12 on phase 5's ragged file the
+     same triplets on the card and the CPU (host table builds timed),
+     and the main file under lut round-trips; ``-d --delta-device`` on
+     phase 4's triplet gives the input back, equal to the host walk's
+     output, with the reconstruction's device ms per block and both
+     decompress walls
 
 The line before the last is the card's name and power limit; the one
 before that is a JSON object with one entry per kernel (``launches``:
 phase 4's count for K1-K4, the phase-6 --data-parallel driver's for K5
-and K6, and their ``sharded_launches`` the ShardedEncoder's; phases 7
-to 9 check their own counts; ``launches_T4`` phase 10's counts of the
+and K6, and their ``sharded_launches`` the ShardedEncoder's; K1's
+``lut`` case phase 11's main-file lut compress's; phases 7 to 9 check
+their own counts; ``launches_T4`` phase 10's counts of the
 same runs at ``-T 4``; ``ms`` the wrapper, ``kernel_ms`` the
-launch alone; K2's ``lut`` and ``grids_only``, K4's ``d1``, K5's and
+launch alone; K1's ``lut``, K2's ``lut`` and ``grids_only``, K4's
+``d1``, K5's and
 K6's ``one_block`` and K6's ``flat`` the other cases above); the last
 line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
@@ -80,6 +97,7 @@ of scalce_tpu.
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import json
 import os
@@ -169,12 +187,14 @@ HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12 / 2
 #: integer operations each kernel must do per element, counted from its
 #: source (K1: per k-mer window inside a read, both strands' mix32 ranks
-#: and the reverse complement; K2: per cell of a read, the LUT, clamp,
+#: and the reverse complement, or with a rank LUT the two lookups' address
+#: arithmetic and compares; K2: per cell of a read, the LUT, clamp,
 #: context and count; K3 and K4: per cell of a read, the context, table
 #: entry and state update; K5: per (lane, step); K6: per index).  Padding
 #: cells and windows past a read's end are not counted: the bound stays
 #: a bound.
-OPS_PER_ELEMENT = {"K1": 40, "K2": 10, "K3": 20, "K4": 25, "K5": 15, "K6": 4}
+OPS_PER_ELEMENT = {"K1": 40, "K2": 10, "K3": 20, "K4": 25, "K5": 15, "K6": 4,
+                   "K1 lut": 20}
 
 
 def narrow_bytes(t: torch.Tensor) -> int:
@@ -190,13 +210,16 @@ def narrow_bytes(t: torch.Tensor) -> int:
     return t.numel() * width
 
 
-def bound(name: str, tensors_in, tensors_out, elements: int) -> dict:
+def bound(name: str, tensors_in, tensors_out, elements: int,
+          extra_bytes: int = 0) -> dict:
     """The least time the card could take: the larger of the bytes the
     function must move (each input read once, each output written once,
     each at the narrowest type that holds its values, so never more than
-    a launch moves) over the HBM rate and its integer operations over the
-    CUDA cores' rate."""
-    nbytes = sum(narrow_bytes(t) for t in (*tensors_in, *tensors_out))
+    a launch moves; plus ``extra_bytes``, the table sectors a lookup
+    kernel must read) over the HBM rate and its integer operations over
+    the CUDA cores' rate."""
+    nbytes = sum(narrow_bytes(t) for t in (*tensors_in, *tensors_out)) \
+        + extra_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = OPS_PER_ELEMENT[name] * elements / INT_OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -213,13 +236,16 @@ class Case:
     outputs and ``elements``."""
 
     def __init__(self, name, wrapper, plain, args, prepare, iters,
-                 plain_iters, bound_in, elements, library=None):
+                 plain_iters, bound_in, elements, library=None,
+                 ops_key=None, extra_bytes=0):
         self.name, self.wrapper, self.plain, self.args = (name, wrapper,
                                                           plain, args)
         self.prepare, self.iters, self.plain_iters = (prepare, iters,
                                                       plain_iters)
         self.bound_in, self.elements = bound_in, elements
         self.library = library
+        self.ops_key = ops_key or name.split()[0]
+        self.extra_bytes = extra_bytes
 
     def run(self) -> dict:
         got = as_tuple(self.wrapper(*self.args))
@@ -234,8 +260,8 @@ class Case:
         out["library_ms"] = None
         if self.library is not None:
             out["library_ms"] = time_ms(self.library, self.iters)
-        out.update(bound(self.name.split()[0], self.bound_in, got,
-                         self.elements))
+        out.update(bound(self.ops_key, self.bound_in, got, self.elements,
+                         self.extra_bytes))
         if out["kernel_ms"] < out["bound_ms"]:
             raise AssertionError(f"{self.name}: the launch ({out['kernel_ms']}"
                                  f" ms) beats its bound ({out['bound_ms']} "
@@ -281,6 +307,31 @@ def check_kernels(blocks, dev, kernels) -> dict:
                       core_rank.core_rank_codes_plain,
                       (codes, exc, lengths, k, seed), core_rank.prepare, 20, 5,
                       (codes, exc, lengths), windows))
+    # the explicit dictionary at k = 12: a 64 MB table, more than L2; its
+    # bound counts each distinct 32-byte sector the lookups of this
+    # block's valid windows touch (every sector read once)
+    from scalce_tpu_torch.models import core_dict
+    t0 = time.monotonic()
+    lut = torch.from_numpy(core_dict.build_rank_lut(k, seed).view(
+        "int32")).to(dev)
+    say(f"K1 lut: rank_lut built in {time.monotonic() - t0:.2f} s "
+        f"(k = {k}, {lut.numel() * 4} B)")
+    valid = ~core_rank.window_invalid(exc, lengths, k)
+    kmers = core_rank.rolling_kmers(codes, k)
+    looked = torch.cat([kmers[valid], core_rank.revcomp_kmer(kmers,
+                                                             k)[valid]])
+    sectors = int(torch.unique(looked >> 3).numel())
+    say(f"K1 lut: {looked.numel()} lookups ({looked.numel() * 32} B as "
+        f"32-byte sectors if every one missed L2), {sectors} distinct "
+        f"sectors ({sectors * 32} B, the bound's)")
+    lut_reads = {"lookups": looked.numel(), "sectors": sectors}
+    del kmers, looked
+    cases.append(Case("K1 lut", core_rank.core_rank_codes,
+                      core_rank.core_rank_codes_plain,
+                      (codes, exc, lengths, k, seed, lut), core_rank.prepare,
+                      20, 2, (codes, exc, lengths), int(valid.sum()),
+                      ops_key="K1 lut", extra_bytes=sectors * 32))
+    del valid
 
     _, _, qual_s, len_s, *_ = encode._device_stage_a(
         pre["seq"], pre["qual"], pre["len"], block.n_reads, pre["exc"], k,
@@ -379,6 +430,8 @@ def check_kernels(blocks, dev, kernels) -> dict:
     out = {}
     for case in cases:
         out[case.name] = m = case.run()
+        if case.name == "K1 lut":
+            m.update(lut_reads)
         lib = "none" if m["library_ms"] is None else \
             f"{m['library_ms']:.3f}"
         say(f"{case.name}: equal to plain; wrapper {m['ms']:.3f} ms, kernel "
@@ -850,6 +903,182 @@ def check_pipelined(src: str, data: bytes, tmp: str, kernels: dict,
     return t4
 
 
+def cli_config(argv, **change):
+    """The Config that ``scalce_tpu_torch.cli.main(argv)`` compresses
+    with, with ``change`` on top (placements the CLI has no flag for)."""
+    from scalce_tpu_torch import cli, cli_args
+    args = cli.build_parser().parse_args(argv)
+    if args.delta_device is None:                           # as cli.main
+        args.delta_device = args.core_placement == "device"
+    return dataclasses.replace(cli_args.config_from_args(args), **change)
+
+
+def check_placements(src: str, data: bytes, rag: str, tmp: str,
+                     kernels: dict, smi: str, t1: dict) -> int:
+    """Phase 11: the placements and dictionaries on the main file.  The
+    bare command's Config under host core, AUTO, host delta and
+    --data-parallel host delta must write phase 9's triplet (host core:
+    no kernel, no device memory; host delta: K1 per block and no device
+    delta); the pair under host delta phase 7's triplet; lut and lcp at
+    core k 12 the same triplets on the card and the CPU (phase 5's ragged
+    file), the main file round-tripping under lut; and -d --delta-device
+    the input back, equal to the host walk's output.  Returns K1's
+    launches in the main file's lut compress."""
+    import scalce_tpu_torch
+    from scalce_tpu_torch import container
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.models import core_dict
+    from scalce_tpu_torch.ops import delta_decode
+    from scalce_tpu_torch.pipeline import encode
+    from scalce_tpu_torch.streams import seqs
+    bare = triplet(t1["bare"]["prefix"])
+    delta_ops = [0]
+    real_delta = encode._delta_seq
+
+    def counted_delta(*a):
+        delta_ops[0] += 1
+        return real_delta(*a)
+    encode._delta_seq = counted_delta
+    base = [src, "-T", "1"]
+    runs = {"host core": (cli_config(base + ["--core-placement", "host"]),
+                          "host"),
+            "auto": (cli_config(base + ["--core-placement", "auto"]), None),
+            "host delta": (cli_config(base, delta_on_device=False),
+                           "device"),
+            "host delta --data-parallel": (cli_config(
+                base, delta_on_device=False, data_parallel=True), "device")}
+    try:
+        for name, (cfg, placement) in runs.items():
+            out = os.path.join(tmp, name.replace(" ", "_"))
+            reset(kernels)
+            delta_ops[0] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t0 = time.monotonic()
+            stats = scalce_tpu_torch.compress(
+                dataclasses.replace(cfg, output=out), "cuda")
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            peak = torch.cuda.max_memory_allocated() - before
+            launches = counts(kernels, kernels)
+            if triplet(out) != bare:
+                raise AssertionError(f"{name}: triplet != the bare "
+                                     "command's (phase 9)")
+            if placement is not None and stats.placement != placement:
+                raise AssertionError(f"{name}: placement "
+                                     f"{stats.placement}")
+            if name == "host core" and (any(launches.values()) or peak
+                                        or delta_ops[0]):
+                raise AssertionError(f"host core touched the card: "
+                                     f"launches {launches}, {peak} B")
+            if name != "host core" and (launches["K1"] != 5 or delta_ops[0]
+                                        or any(launches[n] for n in launches
+                                               if n != "K1")):
+                raise AssertionError(f"{name}: launches {launches}, device "
+                                     f"delta ops {delta_ops[0]}")
+            if name == "auto":
+                mbps = encode._LINK_MBPS[torch.device("cuda", 0)]
+                say(f"AUTO: link probe {mbps:.1f} MB/s (4 MB page-locked "
+                    f"round trip) -> {stats.placement} cores | {smi}")
+            say(f"{name}: triplet equals the bare command's, placement "
+                f"{stats.placement}, launches {launches}, peak device "
+                f"memory {peak} B, wall {wall:.3f} s (bare "
+                f"{t1['bare']['wall_s']:.3f} s) | {smi}")
+
+        mates = tuple(os.path.join(tmp, f"mate{m}.fastq") for m in (1, 2))
+        reset(kernels)
+        delta_ops[0] = 0
+        t0 = time.monotonic()
+        scalce_tpu_torch.compress(Config(
+            inputs=mates, paired=True, output=os.path.join(tmp, "pair_hd"),
+            **{**SLICE, "qual_on_device": False, "delta_on_device": False}),
+            "cuda")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = counts(kernels, kernels)
+        if triplet(os.path.join(tmp, "pair_hd")) != triplet(
+                t1["pair"]["prefix"]):
+            raise AssertionError("host-delta pair != phase 7's triplets")
+        if launches["K1"] != 10 or delta_ops[0]:
+            raise AssertionError(f"host-delta pair: launches {launches}, "
+                                 f"device delta ops {delta_ops[0]}")
+        say(f"pair under host delta (host qualities, order 1): phase 7's "
+            f"triplets; launches {launches}; wall {wall:.3f} s (phase 7 "
+            f"{t1['pair']['wall_s']:.3f} s) | {smi}")
+    finally:
+        encode._delta_seq = real_delta
+
+    for mode in ("lut", "lcp"):
+        t0 = time.monotonic()
+        getattr(core_dict, {"lut": "build_rank_lut",
+                            "lcp": "build_rank_lut_lcp"}[mode])(12, 0)
+        t_build = time.monotonic() - t0
+        walls = {}
+        for dev in ("cuda", "cpu"):
+            reset(kernels)
+            walls[dev] = compress_file(rag, os.path.join(tmp, mode + dev),
+                                       dev, dict_mode=mode)
+            if dev == "cuda" and not kernels["K1"][1].launches:
+                raise AssertionError(f"{mode}: K1 never ran")
+        if triplet(os.path.join(tmp, mode + "cuda")) != triplet(
+                os.path.join(tmp, mode + "cpu")):
+            raise AssertionError(f"{mode}: card and CPU triplets differ")
+        say(f"dict_mode {mode} (k 12): card == CPU triplets on the ragged "
+            f"file (card {walls['cuda']:.2f} s, CPU {walls['cpu']:.2f} s); "
+            f"host build of the table {t_build:.2f} s")
+    reset(kernels)
+    t_c = compress_file(src, os.path.join(tmp, "main_lut"), "cuda",
+                        dict_mode="lut")
+    lut_launches = counts(kernels, kernels)
+    scalce_tpu_torch.decompress(Config(
+        mode="decompress", inputs=(os.path.join(tmp, "main_lut.00.scalcen"),),
+        output=os.path.join(tmp, "main_lut_out"), keep_order=True,
+        threads=1), "cuda")
+    with open(os.path.join(tmp, "main_lut_out.fastq"), "rb") as f:
+        if f.read() != data:
+            raise AssertionError("main file under lut: decompress != input")
+    comp = sum(len(b) for _, b in triplet(os.path.join(tmp, "main_lut")))
+    say(f"main file under lut: round trip exact, ratio "
+        f"{len(data) / comp:.4f}, compress {t_c:.3f} s, launches "
+        f"{lut_launches} | {smi}")
+
+    # -d --delta-device against the host walk on phase 4's triplet
+    main = os.path.join(tmp, "main.00.scalcen")
+    walls, outs = {}, {}
+    for tag, dev in (("host walk", False), ("delta device", True)):
+        out = os.path.join(tmp, "dd_" + tag.replace(" ", "_"))
+        t0 = time.monotonic()
+        scalce_tpu_torch.decompress(Config(
+            mode="decompress", inputs=(main,), output=out, keep_order=True,
+            delta_on_device=dev, threads=1), "cuda")
+        walls[tag] = time.monotonic() - t0
+        with open(out + ".fastq", "rb") as f:
+            outs[tag] = f.read()
+    if not outs["delta device"] == outs["host walk"] == data:
+        raise AssertionError("--delta-device decompress != input or != the "
+                             "host walk's")
+    reader = container.TripletReader(main)
+    B, L = reader.meta["block_reads"], reader.meta["max_read_len"]
+    ms = []
+    for _, payloads in reader.iter_blocks():
+        fields, lengths, n, *_ = seqs.parse_fields(payloads["r"], B, L,
+                                                   delta_device=True)
+        x = {k: torch.from_numpy(a).to("cuda") for k, a in
+             delta_decode.host_inputs(fields["mask_bits"], fields["shifts"],
+                                      fields["pred_k"], fields["lits"],
+                                      lengths[:n], B, L).items()}
+        ms.append(time_ms(lambda: delta_decode.reconstruct(
+            x["mask_bits"], x["shifts"], x["pred_k"], x["lits"],
+            x["lengths"], L), 10))
+    say(f"-d --delta-device: the input back, equal to the host walk's; "
+        f"reconstruction {', '.join(f'{m:.3f}' for m in ms)} ms per block "
+        f"({delta_decode.ceil_log2(B)} doubling rounds over {B * L} cells);"
+        f" keep-order decompress -T 1 {walls['delta device']:.3f} s (host "
+        f"walk {walls['host walk']:.3f} s) | {smi}")
+    return lut_launches["K1"]
+
+
 def main() -> int:
     smi = card()                                              # phase 1
     from scalce_tpu_torch.ops import (_cuda, core_rank, hist, histogram,
@@ -932,6 +1161,8 @@ def main() -> int:
         check_lossy(src, data, comp, tmp, kernels, smi, t1)     # phase 8
         check_cli_defaults(src, data, tmp, kernels, smi, t1)    # phase 9
         t4 = check_pipelined(src, data, tmp, kernels, smi, t1)  # phase 10
+        measured["K1 lut"]["launches"] = check_placements(
+            src, data, rag, tmp, kernels, smi, t1)              # phase 11
         launches_t4 = {n: t4["main decompress"]["launches"][n]
                        for n in main_path}
         launches_t4.update(K5=t4["dp"]["launches"]["K5"],
@@ -941,7 +1172,8 @@ def main() -> int:
     # path's); K4 also at the main path's remainder group (D = 1); K5 and
     # K6 also at one block's shapes (the one-card --data-parallel
     # driver's); K6 also through its flat entry (the all-reduce's)
-    other = {"K2": (("K2 lut", "lut"), ("K2 grids", "grids_only")),
+    other = {"K1": (("K1 lut", "lut"),),
+             "K2": (("K2 lut", "lut"), ("K2 grids", "grids_only")),
              "K4": (("K4 D=1", "d1"),), "K5": (("K5 1 block", "one_block"),),
              "K6": (("K6 1 block", "one_block"), ("K6 flat", "flat"))}
     print(json.dumps({"kernels": [

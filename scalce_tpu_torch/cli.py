@@ -19,10 +19,18 @@ order that its trial picks (``--qual-order 0``), so the bare command
 writes ``python -m scalce_tpu``'s bytes; ``--qual-device`` with a fixed
 ``--qual-order`` codes them on the device (kernels K2-K6), and
 ``--qual-device`` on decompress decodes them there (K4).  The cores and
-the delta run on the device (the placement defaults move there; they
-change no byte), and the backend is the best installed one.  Flags
-outside the ported part raise NotImplementedError naming the ROADMAP.md
-item that will add them.
+the delta run on the device by default (the placement defaults move
+there; they change no byte), and the backend is the best installed one.
+``--core-placement host`` runs the whole block on the host (the native
+core matcher, sort and delta match; nothing reaches a device), and
+``--core-placement auto`` measures the link to the device once and
+keeps the cores on the host below 200 MB/s; with either, the delta match
+runs on the host too, as the reference's defaults have it.
+``--dict-mode lut|lcp`` ranks cores by an explicit 4^k table (core k <=
+12; K1's table variant on the card).  ``-d --delta-device`` rebuilds
+the sequences by pointer doubling on the device in place of the host's
+serial walk.  Long reads, multi-host and ``--profile`` raise
+NotImplementedError naming the ROADMAP.md item that will add them.
 """
 
 from __future__ import annotations
@@ -43,8 +51,9 @@ def build_parser():
                    help="torch device: cuda (default; every visible card "
                         "under --data-parallel), cuda:N, or cpu (plain "
                         "torch versions of every kernel)")
-    # delta_device None: the device delta match when compressing, the
-    # host delta walk when decompressing (the flag names both)
+    # delta_device None: when compressing, the device delta match beside
+    # device cores (host cores, or AUTO, take the reference's host match);
+    # when decompressing, the host delta walk (the flag names both)
     p.set_defaults(core_placement="device", delta_device=None,
                    backend=DEFAULT_BACKEND)
     return p
@@ -59,7 +68,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.profile:
         raise NotImplementedError("--profile: ROADMAP.md Queue 1 item 18")
     if args.delta_device is None:
-        args.delta_device = not args.decompress
+        args.delta_device = (not args.decompress
+                             and args.core_placement == "device")
     cfg = config_from_args(args)
     from scalce_tpu_torch.pipeline import driver
     if cfg.mode == "compress":

@@ -29,6 +29,16 @@
 // warp reductions (__reduce_min_sync / __reduce_max_sync) give each
 // strand's rank and its position under the tie rule (lower pos wins
 // forward, higher pos wins RC).
+//
+// The explicit dictionaries (dict_mode lut / lcp, k <= 12) rank a k-mer
+// by a table of its 4^k u32 ranks in place of mix32: the same kernel
+// with kLut set (the reference keeps that mode on XLA,
+// scalce_tpu/ops/core_match.py:181-196, as Mosaic has no vector gather).
+// At k = 12 the table is 64 MB of 4-byte words, more than the 50 MB L2:
+// each window reads two words at data-dependent addresses through the
+// read-only path (__ldg), so the bound is the 32-byte sectors those
+// lookups move, not the ranks' arithmetic.  The hash path (kLut false)
+// is the kernel as it was.
 
 #include "common.cuh"
 
@@ -55,10 +65,13 @@ __device__ __forceinline__ uint32_t kmer_at(const uint32_t* w, int p,
          (32 - 2 * k);
 }
 
+template <bool kLut>
 __global__ void core_rank_kernel(const uint8_t* __restrict__ codes,
                                  const uint8_t* __restrict__ exc,
                                  const int64_t* __restrict__ lengths, int B,
-                                 int L, int k, uint32_t seed, bool aligned,
+                                 int L, int k, uint32_t seed,
+                                 const uint32_t* __restrict__ lut,
+                                 bool aligned,
                                  long long* __restrict__ out) {
   extern __shared__ uint32_t smem[];
   const int warp = threadIdx.x >> 5;
@@ -121,8 +134,13 @@ __global__ void core_rank_kernel(const uint8_t* __restrict__ codes,
     const int e = p >> 5;
     if ((__funnelshift_r(ew[e], ew[e + 1], p & 31) & kbits) == 0) {
       const uint32_t v = kmer_at(cw, p, k);
-      rf = scalce::mix32(v, seed);
-      rr = scalce::mix32(scalce::revcomp(v, k), seed);
+      if constexpr (kLut) {
+        rf = __ldg(lut + v);
+        rr = __ldg(lut + scalce::revcomp(v, k));
+      } else {
+        rf = scalce::mix32(v, seed);
+        rr = scalce::mix32(scalce::revcomp(v, k), seed);
+      }
     }
     if (rf < f_rank) {  // p grows: the first position keeps a tie
       f_rank = rf;
@@ -153,6 +171,28 @@ __global__ void core_rank_kernel(const uint8_t* __restrict__ codes,
   if (lane < 6) out[(size_t)lane * B + row] = v;
 }
 
+template <bool kLut>
+int launch_core_rank(const void* codes, const void* exc, const void* lengths,
+                     int B, int L, int k, uint32_t seed, const void* lut,
+                     void* out, void* stream) {
+  const size_t smem = sizeof(uint32_t) * kWarpsPerBlock *
+                      (code_words(L) + exc_words(L));
+  cudaError_t err = cudaFuncSetAttribute(
+      core_rank_kernel<kLut>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool aligned = L % 4 == 0 && (uintptr_t)codes % 4 == 0 &&
+                       (uintptr_t)exc % 4 == 0;
+  if (B > 0) {
+    const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    core_rank_kernel<kLut><<<blocks, 32 * kWarpsPerBlock, smem,
+                             (cudaStream_t)stream>>>(
+        (const uint8_t*)codes, (const uint8_t*)exc, (const int64_t*)lengths,
+        B, L, k, seed, (const uint32_t*)lut, aligned, (long long*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // 1 <= k <= 16 and L >= k (the wrapper checks both).
@@ -160,22 +200,18 @@ __global__ void core_rank_kernel(const uint8_t* __restrict__ codes,
 extern "C" int scalce_core_rank(const void* codes, const void* exc,
                                 const void* lengths, int B, int L, int k,
                                 uint32_t seed, void* out, void* stream) {
-  const size_t smem = sizeof(uint32_t) * kWarpsPerBlock *
-                      (code_words(L) + exc_words(L));
-  cudaError_t err = cudaFuncSetAttribute(
-      core_rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const bool aligned = L % 4 == 0 && (uintptr_t)codes % 4 == 0 &&
-                       (uintptr_t)exc % 4 == 0;
-  if (B > 0) {
-    const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    core_rank_kernel<<<blocks, 32 * kWarpsPerBlock, smem,
-                       (cudaStream_t)stream>>>(
-        (const uint8_t*)codes, (const uint8_t*)exc, (const int64_t*)lengths,
-        B, L, k, seed, aligned, (long long*)out);
-  }
-  return (int)cudaGetLastError();
+  return launch_core_rank<false>(codes, exc, lengths, B, L, k, seed, nullptr,
+                                 out, stream);
+}
+
+// The explicit dictionaries: lut holds the u32 rank of each of the 4^k
+// k-mers, k <= 12 (the wrapper checks both).
+extern "C" int scalce_core_rank_lut(const void* codes, const void* exc,
+                                    const void* lengths, int B, int L, int k,
+                                    const void* lut, void* out,
+                                    void* stream) {
+  return launch_core_rank<true>(codes, exc, lengths, B, L, k, 0u, lut, out,
+                                stream);
 }
 
 // Error text for the Python wrappers (one definition for the library).

@@ -41,6 +41,7 @@ _L = ctypes.c_longlong
 #: C entry points -> argument types (the stream is always last)
 _SIGNATURES = {
     "scalce_core_rank": [_P, _P, _P, _I, _I, _I, _U, _P, _P],
+    "scalce_core_rank_lut": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "scalce_hist_ctx": [_P, _P, _P] + [_I] * 5 + [_P] * 4,
     "scalce_rans_encode": [_P, _P, _P] + [_I] * 6 + [_P] * 4,
     "scalce_divmod_recip": [_P, _P, _I, _P, _P, _P],

@@ -2,7 +2,8 @@
 ``scalce_tpu/ops/core_match.py``).
 
 Each read's core is the minimum-rank k-mer over both strands (rank =
-``mix32``, the implicit hash dictionary); reads are then ordered by
+``mix32``, the implicit hash dictionary, or an explicit rank LUT of
+``models/core_dict.py``); reads are then ordered by
 (core, bases from the core onward).  The ranks come from kernel K1
 (``ops/core_rank.py``), which builds the k-mers and the window mask
 from the codes itself; everything around it is plain torch.  Only
@@ -13,7 +14,7 @@ TPU gathers are slow.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,15 +46,19 @@ def reverse_complement(codes: torch.Tensor,
 
 
 def find_cores_canonical(codes: torch.Tensor, lengths: torch.Tensor,
-                         exc: torch.Tensor, k: int, seed: int):
-    """Core selection over both strands.
+                         exc: torch.Tensor, k: int, seed: int,
+                         rank_lut: Optional[torch.Tensor] = None):
+    """Core selection over both strands; k-mers rank by ``mix32`` with
+    ``seed``, or by ``rank_lut`` (int32 ``[4^k]`` u32 bits; None: the
+    implicit dictionary).
 
     Returns ``(core_kmer u32 [B], core_pos [B], is_rc bool [B],
     codes_oriented [B, L], exc_oriented [B, L])``: the strand with the
     lower-ranked core wins (a tie goes forward); ``NO_CORE`` marks reads
     without a valid window; the RC core position is in the RC frame,
     ``len - k - p_fwd``."""
-    bf, pf, br, pfw, kf, kr = core_rank_codes(codes, exc, lengths, k, seed)
+    bf, pf, br, pfw, kf, kr = core_rank_codes(codes, exc, lengths, k, seed,
+                                              rank_lut)
     lengths = lengths.to(torch.int64)
     use_rc = br < bf
     best = torch.where(use_rc, br, bf)

@@ -8,7 +8,12 @@ qualities, counts its blocks' quality grids in ONE launch of kernel K6
 and rANS-encodes them in ONE launch of kernel K5, each block's cells
 against its own table: the reference's ``jax.vmap`` over a device's
 blocks, written out as one flat problem.  With host-placed qualities
-the host codec encodes each block's at assembly.
+the host codec encodes each block's at assembly; under host delta
+(``delta_on_device`` False with host qualities) each device runs stage
+A only and downloads each block's packed buffer, and the host runs the
+delta match at assembly (:func:`stage1_hd`).  The explicit dictionaries'
+rank LUT is uploaded once to each device.  Host core does not shard
+(``Config`` refuses it with ``--data-parallel``).
 A group of D pairs runs mate 1's stage 1, then mate 2's following each
 block's permutation, then each mate's pass B.  The encoder sends nothing
 between devices; the one collective is :func:`lossy_hist_allreduce`
@@ -76,7 +81,8 @@ def upload_blocks(blocks: Sequence[ReadBlock], device, qual: bool = True,
 
 def stage1(pre: Staged, n_reads: Sequence[int], k: int,
            seed: int, order: int, qual_map: Optional[torch.Tensor] = None,
-           perms: Optional[Sequence[torch.Tensor]] = None):
+           perms: Optional[Sequence[torch.Tensor]] = None,
+           rank_lut: Optional[torch.Tensor] = None):
     """One device's share of a group (the reference's
     ``make_sharded_stage1`` on one device), from its
     :func:`upload_blocks`: stages A and B per block (K2 writes each
@@ -87,7 +93,8 @@ def stage1(pre: Staged, n_reads: Sequence[int], k: int,
     per-block lists ``perm``, ``delta``, ``len_s``, then ``sym`` and
     ``ctx`` ``[g, B, L]`` and ``counts`` ``[g, C*94]``; without qualities
     in ``pre`` (host placement: ``make_sharded_stage1_nq``) the last
-    three are None."""
+    three are None.  ``rank_lut``: the explicit dictionary's ranks on
+    this device (None: the hash)."""
     pre = pre.wait()
     qual = pre.get("qual")
     sym = ctx = None
@@ -101,15 +108,40 @@ def stage1(pre: Staged, n_reads: Sequence[int], k: int,
         if perms is None:
             outs.append(encode._encode_core(
                 pre["seq"][j], q, pre["len"][j], n, pre["exc"][j], k, seed,
-                order, qual_map, grids))
+                order, qual_map, grids, rank_lut))
         else:
             outs.append(encode._encode_core_mate2(
                 pre["seq"][j], q, pre["len"][j], n, pre["exc"][j], perms[j],
-                k, seed, order, qual_map, grids))
+                k, seed, order, qual_map, grids, rank_lut))
     perm, delta, len_s = map(list, zip(*outs))
     counts = None if qual is None else qualities.group_histogram(sym, ctx,
                                                                  order)
     return perm, delta, len_s, sym, ctx, counts
+
+
+def stage1_hd(pre: Staged, n_reads: Sequence[int], k: int, seed: int,
+              rank_lut: Optional[torch.Tensor] = None,
+              perms: Optional[Sequence[torch.Tensor]] = None):
+    """One device's share of a group under host delta (the reference's
+    ``make_sharded_stage1_hd`` on one device; with ``perms``, mate 1's
+    permutations, ``make_sharded_stage_mate2_hd``): per block, stage A
+    and its packed buffer (``encode._hd_pack``).  Returns per-block
+    lists ``bufs`` and ``perms``."""
+    pre = pre.wait()
+    bufs, out = [], []
+    for j, n in enumerate(n_reads):
+        if perms is None:
+            buf, perm = encode._device_stage_a_hd(
+                pre["seq"][j], pre["len"][j], n, pre["exc"][j], k, seed,
+                rank_lut)
+        else:
+            perm = perms[j]
+            buf = encode._device_stage_a2_hd(
+                pre["seq"][j], pre["len"][j], pre["exc"][j], perm, k, seed,
+                rank_lut)
+        bufs.append(buf)
+        out.append(perm)
+    return bufs, out
 
 
 class ShardedEncoder:
@@ -134,6 +166,13 @@ class ShardedEncoder:
         self._maps = {dev: encode.device_qual_map(qual_map, dev)
                       for dev in set(self.mesh)}
         self._links = {dev: Link(dev) for dev in set(self.mesh)}
+        # the fallback encoder's LUT, built once, on every device
+        self._luts = {dev: self._fallback.rank_lut
+                      if dev == self._fallback.device
+                      else encode.upload_rank_lut(self._fallback.rank_lut_np,
+                                                  self._links[dev])
+                      for dev in set(self.mesh)}
+        self._host_delta = self._fallback.host_delta
         self.cfg = cfg
 
     def _shares(self, blocks: Sequence) -> List[Sequence]:
@@ -160,13 +199,20 @@ class ShardedEncoder:
                              f"{len(blocks)}")
         cfg = self.cfg
         pre = pre if pre is not None else self.upload_group(blocks)
+        shares = list(enumerate(zip(pre, self._shares(blocks), self.mesh)))
+        if self._host_delta:
+            with stage("stage A"):
+                return [stage1_hd(p, [b.n_reads for b in share], cfg.core_k,
+                                  cfg.dict_seed, self._luts[dev],
+                                  None if perms is None else perms[i])
+                        for i, (p, share, dev) in shares]
         with stage("stage A+B"):
             return [stage1(p, [b.n_reads for b in share], cfg.core_k,
                            cfg.dict_seed, cfg.qual_context_order,
                            self._maps[dev],
-                           None if perms is None else perms[i])
-                    for i, (p, share, dev) in enumerate(zip(
-                        pre, self._shares(blocks), self.mesh))]
+                           None if perms is None else perms[i],
+                           self._luts[dev])
+                    for i, (p, share, dev) in shares]
 
     def _pass_b(self, blocks: Sequence[ReadBlock], s1):
         """Every device's group pass B: ``(perm, delta, len_s, freq,
@@ -187,6 +233,16 @@ class ShardedEncoder:
         """Device work of a full group: every device's stage 1, then
         every device's pass B."""
         return self._pass_b(blocks, self._stage1(blocks, pre))
+
+    def _download_hd(self, per_device, key: str) -> List[Fetched]:
+        """Host delta: each device's packed buffers, one queued copy per
+        device, marked ``key`` (``"hd"`` mate 1, ``"hd2"`` mate 2) -> one
+        :class:`Fetched` per block, in input order."""
+        out = []
+        for dev, (bufs, _) in zip(self.mesh, per_device):
+            with stage("download"):
+                out += self._links[dev].download(*({key: b} for b in bufs))
+        return out
 
     def _download(self, per_device) -> List[Fetched]:
         """Each device's downloads (one queued copy of its blocks'
@@ -211,6 +267,8 @@ class ShardedEncoder:
         the single-device encoder."""
         if len(blocks) < self.D:
             return [self._fallback.dispatch(b) for b in blocks]
+        if self._host_delta:
+            return self._download_hd(self._stage1(blocks, pre), "hd")
         return self._download(self.encode_device(blocks, pre))
 
     def assemble(self, blocks: Sequence[ReadBlock],
@@ -246,6 +304,12 @@ class ShardedEncoder:
         downloads; a tail group pair by pair."""
         if len(pairs) < self.D:
             return [self._fallback.dispatch_pair(*p) for p in pairs]
+        if self._host_delta:
+            b1s, b2s = [p[0] for p in pairs], [p[1] for p in pairs]
+            s1 = self._stage1(b1s, pre1)
+            s2 = self._stage1(b2s, pre2, perms=[perms for _, perms in s1])
+            return [list(f) for f in zip(self._download_hd(s1, "hd"),
+                                         self._download_hd(s2, "hd2"))]
         out1, out2 = self.encode_device_pair(pairs, pre1, pre2)
         return [list(f) for f in zip(self._download(out1),
                                      self._download(out2))]

@@ -2,11 +2,15 @@
 
 Per group of up to ``DECODE_GROUP`` blocks: :meth:`BlockDecoder.parse_block`
 parses each block's payloads on the host (the sequences by a serial
-delta walk in the native library); with ``qual_on_device``,
+delta walk in the native library; with ``delta_on_device`` only their
+fields, deep-validated); with ``qual_on_device``,
 :meth:`BlockDecoder.dispatch_quals` decodes the group's qualities in one
-K4 launch and queues the grids' download (the thread that owns the
-device); :meth:`BlockDecoder.finish_group` waits for them, or decodes
-the qualities on the host (``qualities_host.decode_host``, the default),
+K4 launch and queues the grids' download, and with ``delta_on_device``
+:meth:`BlockDecoder.dispatch_seqs` uploads each block's delta fields,
+queues its pointer-doubling reconstruction (``ops/delta_decode.py``) and
+the codes' download (both on the thread that owns the device);
+:meth:`BlockDecoder.finish_group` waits for them, or decodes the
+qualities on the host (``qualities_host.decode_host``, the default),
 then ``_finish`` restores strand orientation, names and, under
 keep-order, arrival order.  Parse and finish run on any thread.
 """
@@ -22,6 +26,7 @@ from scalce_tpu_torch import container, native
 from scalce_tpu_torch.io.fastq import Ragged, lens_to_offsets, reorder_ragged
 from scalce_tpu_torch.streams import names as names_stream
 from scalce_tpu_torch.device import resolve_device
+from scalce_tpu_torch.ops import delta_decode
 from scalce_tpu_torch.timing import stage
 from scalce_tpu_torch.streams import qualities, qualities_host, seqs
 from scalce_tpu_torch.transfer import Link
@@ -45,7 +50,8 @@ DECODE_GROUP = 4
 
 class BlockDecoder:
     def __init__(self, meta: Dict, device, keep_order: bool = False,
-                 qual_on_device: bool = False):
+                 qual_on_device: bool = False,
+                 delta_on_device: bool = False):
         self.meta = meta
         self.device = resolve_device(device)
         self.link = Link(self.device)
@@ -53,15 +59,50 @@ class BlockDecoder:
         #: quality-decode placement, a per-run choice (the payload does
         #: not depend on where it was encoded)
         self.qual_on_device = qual_on_device
+        #: sequence-delta decode placement: pointer doubling on the
+        #: device or the serial host walk
+        self.delta_on_device = delta_on_device
+        if delta_on_device and int(meta["max_read_len"]) > 32752:
+            raise ValueError("--delta-device does not decode long-read "
+                             "files (max_read_len > 32752): the host walk "
+                             "only")
 
     def parse_block(self, payloads: Dict[str, bytes]):
-        """Host payload parse: seq reconstruct + quality stream fields."""
+        """Host payload parse: the sequences (reconstructed, or under
+        ``delta_on_device`` their validated fields, padded for the
+        upload, in the codes' place) and the quality stream's fields."""
         B = int(self.meta["block_reads"])
         L = int(self.meta["max_read_len"])
         with stage("seqs.parse"):
-            parsed = seqs.parse(payloads["r"], B, L)
+            if self.delta_on_device:
+                fields, lengths, n, *rest = seqs.parse_fields(
+                    payloads["r"], B, L, delta_device=True)
+                parsed = (delta_decode.host_inputs(
+                    fields["mask_bits"], fields["shifts"],
+                    fields["pred_k"], fields["lits"], lengths[:n], B, L),
+                    lengths, n, *rest)
+            else:
+                parsed = seqs.parse(payloads["r"], B, L)
         with stage("qualities.parse"):
             return parsed, qualities.parse(payloads["q"])
+
+    def dispatch_seqs(self, parsed_list):
+        """Under ``delta_on_device``, per block of the group, queued: the
+        upload of its delta fields, the reconstruction and the codes'
+        download (one :class:`~scalce_tpu_torch.transfer.Fetched` each);
+        else None (the codes are in ``parsed_list`` already)."""
+        if not self.delta_on_device:
+            return None
+        L = int(self.meta["max_read_len"])
+        out = []
+        with stage("delta decode (device)"):
+            for pr in parsed_list:
+                x = self.link.upload(pr[0]).wait()
+                codes = delta_decode.reconstruct(
+                    x["mask_bits"], x["shifts"], x["pred_k"], x["lits"],
+                    x["lengths"], L)
+                out += self.link.download({"codes": codes})
+        return out
 
     def dispatch_quals(self, parsed_list, encs):
         """The group's quality decode on the device, queued: one K4
@@ -79,11 +120,16 @@ class BlockDecoder:
         return qualities_host.decode_host(enc, lengths)
 
     def finish_group(self, payload_list, parsed_list, dev,
-                     name_starts) -> List["DecodedBlock"]:
-        """The host half of a group: its qualities (:meth:`dispatch_quals`'
-        download, or decoded here on the host), then :meth:`_finish` of
-        each block; ``name_starts``: each block's first template-name
-        index."""
+                     name_starts, seq_dev=None) -> List["DecodedBlock"]:
+        """The host half of a group: its codes (:meth:`dispatch_seqs`'
+        downloads, when ``seq_dev`` holds them), its qualities
+        (:meth:`dispatch_quals`' download, or decoded here on the host),
+        then :meth:`_finish` of each block; ``name_starts``: each block's
+        first template-name index."""
+        if seq_dev is not None:
+            with stage("delta decode (device)"):
+                parsed_list = [(f.wait()["codes"], *pr[1:])
+                               for f, pr in zip(seq_dev, parsed_list)]
         with stage("quality decode"):
             if self.qual_on_device:
                 quals = qualities.decode_batch_fetch(dev)

@@ -18,12 +18,17 @@ Compress runs on these threads:
   blocks pending.  With ``-T 1`` or less the main thread assembles each
   block right after its dispatch: the same code, no pool.
 
+Under host core there is no upload thread and nothing is queued on a
+device: the workers run each block whole on the host.
+
 Decompress runs the container read on a prefetch thread, the payload
 parse and each group's finish and FASTQ render on a pool of ``-T``
-workers, the quality decode's K4 launch and download on the main
-thread, and the ordered writes on a writer thread.  Bytes never depend
-on ``-T``.  An exception on any thread raises out of :func:`compress` or
-:func:`decompress` once the threads it started have stopped.
+workers, the quality decode's K4 launch and download and, under
+``--delta-device``, each block's sequence reconstruction and download
+on the main thread, and the ordered writes on a writer thread.  Bytes
+never depend on ``-T``.  An exception on any thread raises out of
+:func:`compress` or :func:`decompress` once the threads it started have
+stopped.
 """
 
 from __future__ import annotations
@@ -170,12 +175,13 @@ def _parsed(blocks: Iterator, done) -> Iterator:
                 yield item
 
 
-def _staged(groups: Iterator, upload: Callable) -> Iterator:
-    """Each group with its upload, the parse one prefetch thread ahead
-    (stopped when this generator stops)."""
+def _staged(groups: Iterator, upload: Optional[Callable]) -> Iterator:
+    """Each group with its upload (None when ``upload`` is: host core
+    sends nothing), the parse one prefetch thread ahead (stopped when
+    this generator stops)."""
     with contextlib.closing(_prefetch(groups)) as parsed:
         for group in parsed:
-            yield group, upload(group)
+            yield group, None if upload is None else upload(group)
 
 
 def _groups(items: Iterator, D: int) -> Iterator[List]:
@@ -217,12 +223,14 @@ def _open_writers(cfg: Config) -> List[container.TripletWriter]:
 
 
 def _encoder(cfg: Config, device, qual_map):
-    """``(devices, D, upload, dispatch, assemble)`` of the run's encoder:
-    the single-device :class:`BlockEncoder` on groups of one block, or
-    the :class:`ShardedEncoder` on groups of D.  ``upload(group)`` runs
-    on the upload thread, ``dispatch(group, pre)`` on the main thread,
-    ``assemble(group, dispatched)`` gives one output per block (a pair of
-    them for ``-r``) on any thread."""
+    """``(devices, D, upload, dispatch, assemble, placement)`` of the
+    run's encoder: the single-device :class:`BlockEncoder` on groups of
+    one block, or the :class:`ShardedEncoder` on groups of D.
+    ``upload(group)`` runs on the upload thread (None under host core:
+    nothing crosses to a device), ``dispatch(group, pre)`` on the main
+    thread, ``assemble(group, dispatched)`` gives one output per block
+    (a pair of them for ``-r``) on any thread; ``placement`` is
+    ``"host"`` or ``"device"`` (the cores')."""
     if cfg.data_parallel:
         senc = ShardedEncoder(cfg, device, qual_map=qual_map)
         if cfg.paired:
@@ -230,18 +238,22 @@ def _encoder(cfg: Config, device, qual_map):
                     lambda g: (senc.upload_group([p[0] for p in g]),
                                senc.upload_group([p[1] for p in g])),
                     lambda g, pre: senc.dispatch_pair(g, *pre),
-                    senc.assemble_pair)
+                    senc.assemble_pair, "device")
         return (senc.mesh, senc.D, senc.upload_group, senc.dispatch,
-                senc.assemble)
+                senc.assemble, "device")
     enc = BlockEncoder(cfg, device, qual_map)
+    devices = [] if enc.host_core else [enc.device]
     if cfg.paired:
-        return ([enc.device], 1,
-                lambda g: (enc.upload(g[0][0]), enc.upload(g[0][1])),
-                lambda g, pre: enc.dispatch_pair(*g[0], *pre),
-                lambda g, f: [enc.assemble_pair(*g[0], f)])
-    return ([enc.device], 1, lambda g: enc.upload(g[0]),
-            lambda g, pre: enc.dispatch(g[0], pre),
-            lambda g, f: [enc.assemble(g[0], f)])
+        upload = lambda g: (enc.upload(g[0][0]), enc.upload(g[0][1]))
+        dispatch = lambda g, pre: enc.dispatch_pair(
+            *g[0], *(pre or (None, None)))
+        assemble = lambda g, f: [enc.assemble_pair(*g[0], f)]
+    else:
+        upload = lambda g: enc.upload(g[0])
+        dispatch = lambda g, pre: enc.dispatch(g[0], pre)
+        assemble = lambda g, f: [enc.assemble(g[0], f)]
+    return (devices, 1, None if enc.host_core else upload, dispatch,
+            assemble, enc.placement)
 
 
 def compress(cfg: Config, device) -> RunStats:
@@ -263,9 +275,10 @@ def compress(cfg: Config, device) -> RunStats:
         (path,) = cfg.inputs
         blocks = fastq.iter_blocks(path, cfg.block_reads, cfg.max_read_len)
     qual_map, blocks = _lossy_preamble(cfg, blocks)
-    devices, D, upload, dispatch, assemble = _encoder(cfg, device, qual_map)
-    stats = RunStats(mode="compress", placement="device",
-                     device=",".join(str(d) for d in devices))
+    devices, D, upload, dispatch, assemble, placement = _encoder(
+        cfg, device, qual_map)
+    stats = RunStats(mode="compress", placement=placement,
+                     device=",".join(str(d) for d in devices) or "host")
     writers = _open_writers(cfg)
 
     def assemble_recycle(item, dispatched):
@@ -297,9 +310,12 @@ def compress(cfg: Config, device) -> RunStats:
                       file=sys.stderr)
 
     groups = _groups(_parsed(blocks, writers[0].existing_blocks), D)
+    # host core: no upload stage, the parse's prefetch alone (the
+    # reference's host-core branch)
+    staged = _staged(groups, upload)
     try:
-        with contextlib.closing(_prefetch(_staged(groups, upload),
-                                          depth=2)) as items:
+        with contextlib.closing(staged if upload is None else _prefetch(
+                staged, depth=2)) as items:
             _run_pipelined(items, lambda it: dispatch(*it),
                            assemble_recycle, emit, cfg.threads,
                            stats.stage_s)
@@ -310,13 +326,6 @@ def compress(cfg: Config, device) -> RunStats:
     stats.output_bytes = sum(stats.stream_bytes.values())
     stats.wall_s = time.monotonic() - t0
     return stats
-
-
-def check_decode_config(cfg: Config) -> None:
-    """Raise NotImplementedError outside the ported decode slice."""
-    if cfg.delta_on_device:
-        raise NotImplementedError(
-            "--delta-device decode: ROADMAP.md Queue 1 item 15")
 
 
 class _StageWrites:
@@ -338,7 +347,6 @@ def decompress(cfg: Config, device) -> RunStats:
     record i of one pairing with record i of the other.  Each mate has
     its own decoder."""
     t0 = time.monotonic()
-    check_decode_config(cfg)
     (path,) = cfg.inputs
     reader = container.TripletReader(path)
     if reader.meta.get("paired"):
@@ -350,7 +358,8 @@ def decompress(cfg: Config, device) -> RunStats:
         paths = [None if cfg.output == "-" else cfg.output
                  if cfg.output.endswith(".fastq") else cfg.output + ".fastq"]
     decs = [BlockDecoder(reader.meta, device, keep_order=cfg.keep_order,
-                         qual_on_device=cfg.qual_on_device)
+                         qual_on_device=cfg.qual_on_device,
+                         delta_on_device=cfg.delta_on_device)
             for _ in readers]
     stats = RunStats(mode="decompress", device=str(decs[0].device))
     with contextlib.ExitStack() as files:
@@ -389,8 +398,11 @@ def _run_decode_pipeline(items: Iterator, decs: List[BlockDecoder],
       this thread:   each group's quality decode (``dispatch_quals``: one
                      K4 launch per group whose streams share (B, L, T,
                      order), else per block, and the grids' download;
-                     host placement: nothing), with the template-name
-                     start of each block
+                     host placement: nothing) and, under
+                     ``--delta-device``, each block's sequence
+                     reconstruction and the codes' download
+                     (``dispatch_seqs``), with the template-name start of
+                     each block
       pool:          finish (host quality decode or the download's wait,
                      ``_finish``) and FASTQ render, per device launch or
                      per block
@@ -404,8 +416,8 @@ def _run_decode_pipeline(items: Iterator, decs: List[BlockDecoder],
     max_parse = max(1, workers) * 2 + DECODE_GROUP
     writer = _AsyncWriter()
 
-    def finish(c, plist, parsed, dev, starts):
-        blocks = decs[c].finish_group(plist, parsed, dev, starts)
+    def finish(c, plist, parsed, dev, starts, seq_dev):
+        blocks = decs[c].finish_group(plist, parsed, dev, starts, seq_dev)
         with stage("render FASTQ"):
             return blocks, [fastq.render_fastq_records(
                 b.seq, b.qual, b.lengths, b.n_reads, b.exc_pos, b.exc_byte,
@@ -443,8 +455,10 @@ def _run_decode_pipeline(items: Iterator, decs: List[BlockDecoder],
             for idx in chunks:
                 sel = [plist[i] for i in idx], [parsed[i] for i in idx]
                 dev = dec.dispatch_quals(sel[1], [encs[i] for i in idx])
+                seq_dev = dec.dispatch_seqs(sel[1])
                 futs.append((c, pool.submit(finish, c, *sel, dev,
-                                            [starts[i] for i in idx])))
+                                            [starts[i] for i in idx],
+                                            seq_dev)))
         out_pending.append(futs)
         drain(False)
 

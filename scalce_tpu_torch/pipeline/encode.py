@@ -1,30 +1,50 @@
-"""Block encode pipeline (port of ``scalce_tpu/pipeline/encode.py``,
-cores and delta on the device, qualities on either side).
+"""Block encode pipeline (port of ``scalce_tpu/pipeline/encode.py``:
+every short-read placement and dictionary).
 
-Per block: stage A (unpack the 2-bit upload, canonical cores, sort
-keys, one stable multi-key sort, permute), stage B (aligned-predecessor
-delta of the sorted sequences; with device-placed qualities, the quality
-grids and histogram, through the lossy map if any, in one K2 launch),
-pass B of device-placed qualities (K3 and the compaction) and the
-downloads, all queued on the device; then the host assembly of the
-``n``/``r``/``q`` payloads, which waits for the downloads and where
-host-placed qualities (the CLI's default) are encoded by
-``streams/qualities_host.py``.  Paired-end: mate 2 computes its own
-cores but follows mate 1's permutation.  Every payload byte is the
-reference's for the same block and Config.
+Placements, as the reference's ``BlockEncoder`` picks them:
+
+- device (``core_on_device`` True, or AUTO on a fast link): stages A
+  and B on the device, as below;
+- host delta (``delta_on_device`` False with host-placed qualities):
+  stage A on the device, whose sorted cores, positions, strands and
+  lengths cross packed into one buffer (:func:`_hd_pack`), then the
+  native delta match on the host (:meth:`BlockEncoder._assemble_hd`);
+- host core (``core_on_device`` False, or AUTO on a link slower than
+  200 MB/s, with host delta and the hash dictionary): the native core
+  matcher, sort and delta match on the host, nothing on the device
+  (:meth:`BlockEncoder._assemble_hc`).
+
+The explicit dictionaries (``dict_mode`` lut / lcp) rank cores by a
+4^k table (``models/core_dict.py``) that each encoder builds once and
+uploads once per device.
+
+Per block on the device placement: stage A (unpack the 2-bit upload,
+canonical cores, sort keys, one stable multi-key sort, permute), stage B
+(aligned-predecessor delta of the sorted sequences; with device-placed
+qualities, the quality grids and histogram, through the lossy map if
+any, in one K2 launch), pass B of device-placed qualities (K3 and the
+compaction) and the downloads, all queued on the device; then the host
+assembly of the ``n``/``r``/``q`` payloads, which waits for the
+downloads and where host-placed qualities (the CLI's default) are
+encoded by ``streams/qualities_host.py``.  Paired-end: mate 2 computes
+its own cores but follows mate 1's permutation.  Every payload byte is
+the reference's for the same block and Config.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from scalce_tpu_torch import container
+from scalce_tpu_torch import container, native
 from scalce_tpu_torch.config import Config
 from scalce_tpu_torch.io.fastq import ReadBlock
+from scalce_tpu_torch.models import core_dict
 from scalce_tpu_torch.streams import names as names_stream
 from scalce_tpu_torch.streams.seqs import _pack2bit_np
 from scalce_tpu_torch.timing import stage
@@ -40,26 +60,38 @@ _EVEN = 0x55555555
 
 
 def check_encode_config(cfg: Config) -> None:
-    """Raise NotImplementedError for a Config outside the ported slice
-    (cores and delta on the device, qualities on either side, hash
-    dictionary, short reads, one host), naming the ROADMAP.md Queue 1
-    item that will add it."""
-    if cfg.dict_mode != "hash":
-        raise NotImplementedError(
-            f"dict_mode {cfg.dict_mode!r}: ROADMAP.md Queue 1 item 14")
+    """Raise NotImplementedError for a Config outside the ported part
+    (short reads, one host), naming the ROADMAP.md Queue 1 item that
+    will add it."""
     if cfg.max_read_len > 32752:
         raise NotImplementedError(
             "long reads (max_read_len > 32752): ROADMAP.md Queue 1 item "
             "11c")
-    if not (cfg.core_on_device is True and cfg.delta_on_device):
-        raise NotImplementedError(
-            "host core, host delta or AUTO placement (the port runs "
-            "core_on_device and delta_on_device): ROADMAP.md Queue 1 "
-            "item 11b")
     if cfg.n_hosts > 1:
         raise NotImplementedError(
             "multi-host (n_hosts > 1, --merge-hosts), single-end or "
             "paired: ROADMAP.md Queue 1 item 16")
+
+
+def build_rank_lut(cfg: Config) -> Optional[np.ndarray]:
+    """The explicit dictionary's u32 rank of every k-mer (host; the
+    reference's ``rank_lut`` property), or None for the implicit hash
+    dictionary."""
+    if cfg.dict_mode == "lut":
+        return core_dict.build_rank_lut(cfg.core_k, cfg.dict_seed)
+    if cfg.dict_mode == "lcp":
+        return core_dict.build_rank_lut_lcp(cfg.core_k, cfg.dict_seed)
+    return None
+
+
+def upload_rank_lut(lut: Optional[np.ndarray], link: Link
+                    ) -> Optional[torch.Tensor]:
+    """The rank LUT on ``link``'s device as int32 words holding the u32
+    bits (one page-locked copy, ordered before the current stream's later
+    work), or None."""
+    if lut is None:
+        return None
+    return link.upload({"lut": lut.view(np.int32)}).wait()["lut"]
 
 
 def device_qual_map(qual_map, device) -> Optional[torch.Tensor]:
@@ -171,9 +203,11 @@ def _delta_seq(codes_s: torch.Tensor, len_s: torch.Tensor,
 
 
 def _stage_a_prologue(seq_packed: torch.Tensor, lengths: torch.Tensor,
-                      exc_pos: torch.Tensor, k: int, seed: int):
+                      exc_pos: torch.Tensor, k: int, seed: int,
+                      rank_lut: Optional[torch.Tensor] = None):
     """Unpack the 2-bit upload, build the exception mask from the flat
-    exception positions, run the canonical core matcher."""
+    exception positions, run the canonical core matcher (``rank_lut``:
+    the explicit dictionary's ranks, None for the hash)."""
     lengths = lengths.to(torch.int64)
     codes = unpack_bases_u32(seq_packed)
     B, L = codes.shape
@@ -182,17 +216,18 @@ def _stage_a_prologue(seq_packed: torch.Tensor, lengths: torch.Tensor,
     # pageable memory and so waits for the card
     exc.index_fill_(0, exc_pos, True)
     ck, cp, is_rc, codes_o, _ = core_match.find_cores_canonical(
-        codes, lengths, exc.reshape(B, L), k, seed)
+        codes, lengths, exc.reshape(B, L), k, seed, rank_lut)
     return lengths, codes_o, ck, cp, is_rc
 
 
 def _device_stage_a(seq_packed, qual, lengths, n_reads: int, exc_pos,
-                    k: int, seed: int):
+                    k: int, seed: int,
+                    rank_lut: Optional[torch.Tensor] = None):
     """Stage A: unpack -> canonical cores -> sort -> orient + permute.
     Qualities stay in their original orientation; with host-placed
     qualities (``qual`` None) ``qual_s`` is None."""
     lengths, codes_o, ck, cp, is_rc = _stage_a_prologue(
-        seq_packed, lengths, exc_pos, k, seed)
+        seq_packed, lengths, exc_pos, k, seed, rank_lut)
     keys = core_match.build_sort_keys(codes_o, lengths, ck, cp, n_reads)
     perm = reorder.sort_permutation(keys)
     codes_s, len_s, ck_s, cp_s, rc_s = reorder.apply_permutation(
@@ -202,12 +237,12 @@ def _device_stage_a(seq_packed, qual, lengths, n_reads: int, exc_pos,
 
 
 def _device_stage_a2(seq_packed, qual, lengths, exc_pos, perm, k: int,
-                     seed: int):
+                     seed: int, rank_lut: Optional[torch.Tensor] = None):
     """Mate-2 stage A: its own cores (they align its delta: adjacent
     pairs usually overlap on mate 2 too), then mate 1's permutation in
     place of a sort, so pairs stay line-synchronized."""
     lengths, codes_o, ck, cp, is_rc = _stage_a_prologue(
-        seq_packed, lengths, exc_pos, k, seed)
+        seq_packed, lengths, exc_pos, k, seed, rank_lut)
     codes_s, len_s, ck_s, cp_s, rc_s = reorder.apply_permutation(
         perm, codes_o, lengths, ck, cp, is_rc)
     qual_s = None if qual is None else qual[perm]
@@ -234,14 +269,15 @@ def _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s, rc_s, n_reads: int,
 
 def _encode_core(seq_packed, qual, lengths, n_reads: int, exc_pos, k: int,
                  seed: int, order: int,
-                 qual_map: Optional[torch.Tensor] = None, grids=None):
+                 qual_map: Optional[torch.Tensor] = None, grids=None,
+                 rank_lut: Optional[torch.Tensor] = None):
     """Stages A and B of one block -> ``(perm, delta, len_s)``: the
     reference's ``_encode_core`` (``_encode_core_nq`` when ``qual`` is
     None) without its histogram, which a data-parallel group takes over
     all its blocks at once; K2 writes the quality grids into ``grids``,
     the block's slices of the group's ``(sym, ctx)``."""
     perm, codes_s, qual_s, len_s, ck_s, cp_s, rc_s = _device_stage_a(
-        seq_packed, qual, lengths, n_reads, exc_pos, k, seed)
+        seq_packed, qual, lengths, n_reads, exc_pos, k, seed, rank_lut)
     delta = _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s, rc_s,
                             n_reads, order, qual_map, histogram=False,
                             grids=grids)[0]
@@ -250,11 +286,12 @@ def _encode_core(seq_packed, qual, lengths, n_reads: int, exc_pos, k: int,
 
 def _encode_core_mate2(seq_packed, qual, lengths, n_reads: int, exc_pos,
                        perm, k: int, seed: int, order: int,
-                       qual_map: Optional[torch.Tensor] = None, grids=None):
+                       qual_map: Optional[torch.Tensor] = None, grids=None,
+                       rank_lut: Optional[torch.Tensor] = None):
     """Mate 2's counterpart of :func:`_encode_core`, following mate 1's
     ``perm`` (returned first, as mate 2's payloads store it)."""
     codes_s, qual_s, len_s, ck_s, cp_s, rc_s = _device_stage_a2(
-        seq_packed, qual, lengths, exc_pos, perm, k, seed)
+        seq_packed, qual, lengths, exc_pos, perm, k, seed, rank_lut)
     delta = _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s, rc_s,
                             n_reads, order, qual_map, histogram=False,
                             grids=grids)[0]
@@ -287,6 +324,128 @@ def download_delta(delta: Dict[str, torch.Tensor]) -> Dict:
                         for k, t in _delta_for_download(delta).items()})
 
 
+def _hd_pack(len_s: torch.Tensor, ck_s: torch.Tensor, cp_s: torch.Tensor,
+             rc_s: torch.Tensor, perm: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+    """The host-delta stage's outputs packed into one buffer of 2B u32
+    words for one download (the reference's ``_hd_pack``), as int32
+    holding the u32 bits.  The sorted codes do not cross: the host
+    rebuilds the sorted oriented rows from its own block
+    (``native.gather_orient``).
+
+    Mate 1 (``perm`` given, the sorted frame, where equal cores are
+    contiguous runs): ``[perm, cp<<17 | bnd<<16 | rc<<15 | len]``, bnd =
+    first row of its core run or a NO_CORE row (row 0 always).  Mate 2
+    (no ``perm``: mate-1 order, cores not contiguous): ``[ck, cp<<16 |
+    rc<<15 | len]``.  cp < L <= 32752 and len <= 32752 fit 15 bits by
+    Config."""
+    len_s = len_s.to(torch.int64)
+    cp = cp_s.to(torch.int64)
+    rc = rc_s.to(torch.int64)
+    if perm is None:
+        parts = [ck_s, (cp << 16) | (rc << 15) | len_s]
+    else:
+        B = ck_s.shape[0]
+        bnd = (ck_s != torch.roll(ck_s, 1)) | (ck_s == core_match.NO_CORE)
+        bnd = bnd | (torch.arange(B, device=ck_s.device) == 0)
+        parts = [perm.to(torch.int64),
+                 (cp << 17) | (bnd.to(torch.int64) << 16) | (rc << 15)
+                 | len_s]
+    return to_u32_bits(torch.cat(parts) & MASK32)
+
+
+def _hd_unpack(buf: np.ndarray, B: int, with_perm: bool = True):
+    """Host mirror of :func:`_hd_pack` (copy of the reference's; ``buf``
+    the downloaded words viewed as uint32).  Returns ``(perm, key, cp,
+    rc, len_s)`` where ``key`` is the boundary-bit vector (mate 1) or the
+    core-id vector (mate 2)."""
+    perm = None
+    w = buf[B:2 * B]
+    if with_perm:
+        perm = buf[:B].astype(np.int64)
+        key = ((w >> 16) & 1).astype(np.uint8)       # run-boundary bits
+        cp = (w >> 17).astype(np.int32)
+    else:
+        key = buf[:B]                                # core ids
+        cp = (w >> 16).astype(np.int32)
+    rc = ((w >> 15) & 1).astype(np.uint8)
+    len_s = (w & 0x7FFF).astype(np.int32)
+    return perm, key, cp, rc, len_s
+
+
+def _device_stage_a_hd(seq_packed, lengths, n_reads: int, exc_pos, k: int,
+                       seed: int, rank_lut: Optional[torch.Tensor] = None):
+    """Stage A for the host-delta placement (also the per-block body of
+    the reference's ``_encode_core_hd``): cores -> sort -> permute the
+    per-read fields, packed by :func:`_hd_pack`; the delta match runs on
+    the host.  Returns ``(buf, perm)``."""
+    lengths, codes_o, ck, cp, is_rc = _stage_a_prologue(
+        seq_packed, lengths, exc_pos, k, seed, rank_lut)
+    keys = core_match.build_sort_keys(codes_o, lengths, ck, cp, n_reads)
+    perm = reorder.sort_permutation(keys)
+    len_s, ck_s, cp_s, rc_s = reorder.apply_permutation(
+        perm, lengths, ck, cp, is_rc)
+    return _hd_pack(len_s, ck_s, cp_s, rc_s, perm), perm
+
+
+def _device_stage_a2_hd(seq_packed, lengths, exc_pos, perm, k: int,
+                        seed: int, rank_lut: Optional[torch.Tensor] = None):
+    """Mate-2 stage A for the host-delta placement (the reference's
+    ``_encode_core_mate2_hd``): its own cores, mate 1's ``perm``."""
+    lengths, codes_o, ck, cp, is_rc = _stage_a_prologue(
+        seq_packed, lengths, exc_pos, k, seed, rank_lut)
+    len_s, ck_s, cp_s, rc_s = reorder.apply_permutation(
+        perm, lengths, ck, cp, is_rc)
+    return _hd_pack(len_s, ck_s, cp_s, rc_s)
+
+
+#: below this, the device link is slower than the host's own native
+#: matcher and sort (the reference's AUTO rule)
+_LINK_AUTO_THRESHOLD_MBPS = 200.0
+_PROBE_BYTES = 4 << 20
+_LINK_MBPS: Dict[torch.device, float] = {}
+_LINK_LOCK = threading.Lock()
+
+
+def device_link_mbps(device) -> float:
+    """The link to ``device`` in MB/s, measured once per device and
+    cached: a 4 MB round trip (upload, then download) through
+    :class:`~scalce_tpu_torch.transfer.Link`'s page-locked staging,
+    timed after one untimed round trip.  Drives the AUTO core placement.
+    A probe that fails raises; the bytes must come back unchanged."""
+    device = resolve_device(device)
+    with _LINK_LOCK:
+        if device not in _LINK_MBPS:
+            link = Link(device)
+            payload = np.arange(_PROBE_BYTES, dtype=np.uint8)
+
+            def round_trip():
+                staged = link.upload({"x": payload}).wait()
+                return link.download({"x": staged["x"]})[0].wait()["x"]
+            round_trip()
+            t0 = time.perf_counter()
+            back = round_trip()
+            dt = time.perf_counter() - t0
+            if not np.array_equal(back, payload):
+                raise RuntimeError(f"link probe on {device}: the round "
+                                   "trip changed the bytes")
+            _LINK_MBPS[device] = 2 * payload.nbytes / max(dt, 1e-6) / 1e6
+        return _LINK_MBPS[device]
+
+
+def host_core_available() -> bool:
+    return native.AVAILABLE and hasattr(native, "core_match_block")
+
+
+def host_delta_available() -> bool:
+    return native.AVAILABLE and hasattr(native, "delta_match")
+
+
+#: what :meth:`BlockEncoder.dispatch` returns for a host-core block:
+#: nothing was queued on any device
+HOST_CORE = "hc"
+
+
 @dataclasses.dataclass
 class EncodedBlock:
     block_id: int
@@ -305,6 +464,12 @@ class BlockEncoder:
     ``cfg.qual_on_device`` False the qualities never reach the device:
     the host codec encodes them at assembly.
 
+    The placement is the reference's (``host_delta``, ``host_core``,
+    ``placement``; see the module docstring): AUTO (``core_on_device``
+    None) measures the link once per device (:func:`device_link_mbps`)
+    and keeps the cores on the host below 200 MB/s.  A host-core encoder
+    makes no :class:`Link` and queues nothing on the device.
+
     A block goes through :meth:`upload` (any thread: the driver runs it
     one block ahead), :meth:`dispatch` (the thread that owns the
     device: every kernel of the block and its downloads, queued without
@@ -315,15 +480,37 @@ class BlockEncoder:
         check_encode_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.link = Link(self.device)
-        self.qual_map = device_qual_map(qual_map, self.device)
         self.qual_map_np = None if qual_map is None else np.asarray(
             qual_map, np.uint8)
+        # host delta only with host-placed qualities (the device quality
+        # path already holds the sorted block) and the native library
+        self.host_delta = (not cfg.delta_on_device
+                           and not cfg.qual_on_device
+                           and host_delta_available())
+        eligible = (self.host_delta and cfg.dict_mode == "hash"
+                    and not cfg.data_parallel and host_core_available())
+        if cfg.core_on_device is None:
+            want_host = (eligible and device_link_mbps(self.device)
+                         < _LINK_AUTO_THRESHOLD_MBPS)
+        else:
+            want_host = not cfg.core_on_device
+        self.host_core = want_host and eligible
+        self.placement = "host" if self.host_core else "device"
+        self.link = self.qual_map = self.rank_lut = None
+        #: the explicit dictionary's ranks on the host (None: hash)
+        self.rank_lut_np = build_rank_lut(cfg)
+        if not self.host_core:
+            self.link = Link(self.device)
+            self.qual_map = device_qual_map(qual_map, self.device)
+            self.rank_lut = upload_rank_lut(self.rank_lut_np, self.link)
 
-    def upload(self, block: ReadBlock) -> Staged:
+    def upload(self, block: ReadBlock) -> Optional[Staged]:
         """H2D through page-locked staging: host-packed 2-bit sequences,
         lengths, exception positions and, when they are device-placed,
-        qualities.  The block's arrays are free again on return."""
+        qualities; nothing for host core.  The block's arrays are free
+        again on return."""
+        if self.host_core:
+            return None
         with stage("upload"):
             packed = _pack2bit_np(block.seq).reshape(block.seq.shape[0], -1)
             host = {"seq": packed, "len": block.lengths,
@@ -341,7 +528,7 @@ class BlockEncoder:
         with stage("stage A"):
             perm, codes_s, qual_s, len_s, ck_s, cp_s, rc_s = _device_stage_a(
                 pre["seq"], pre.get("qual"), pre["len"], block.n_reads,
-                pre["exc"], cfg.core_k, cfg.dict_seed)
+                pre["exc"], cfg.core_k, cfg.dict_seed, self.rank_lut)
         with stage("stage B"):
             delta, sym, ctx, counts = _device_stage_b(
                 codes_s, qual_s, len_s, ck_s, cp_s, rc_s, block.n_reads,
@@ -363,23 +550,54 @@ class BlockEncoder:
         with stage("stage A (mate 2)"):
             a2 = _device_stage_a2(pre2["seq"], pre2.get("qual"),
                                   pre2["len"], pre2["exc"], perm,
-                                  cfg.core_k, cfg.dict_seed)
+                                  cfg.core_k, cfg.dict_seed, self.rank_lut)
         with stage("stage B (mate 2)"):
             delta, sym, ctx, counts = _device_stage_b(
                 *a2, b2.n_reads, cfg.qual_context_order, self.qual_map)
         return out1, (perm, delta, a2[2], sym, ctx, counts)
 
-    def dispatch(self, block: ReadBlock, pre: Optional[Staged] = None
-                 ) -> Fetched:
+    def _stage_a_hd(self, block: ReadBlock, pre: Optional[Staged],
+                    perm: Optional[torch.Tensor] = None):
+        """Host-delta stage A of mate 1 -> ``(buf, perm)``, or of mate 2
+        (``perm``: mate 1's) -> ``buf``."""
+        cfg = self.cfg
+        pre = (pre if pre is not None else self.upload(block)).wait()
+        with stage("stage A"):
+            if perm is None:
+                return _device_stage_a_hd(
+                    pre["seq"], pre["len"], block.n_reads, pre["exc"],
+                    cfg.core_k, cfg.dict_seed, self.rank_lut)
+            return _device_stage_a2_hd(
+                pre["seq"], pre["len"], pre["exc"], perm, cfg.core_k,
+                cfg.dict_seed, self.rank_lut)
+
+    def dispatch(self, block: ReadBlock, pre: Optional[Staged] = None):
         """Every kernel of one block and its downloads, queued:
-        :meth:`encode_device`, then :meth:`download`."""
+        :meth:`encode_device`, then :meth:`download`; under host delta,
+        stage A and the packed buffer's download (marked ``"hd"``);
+        under host core nothing (:data:`HOST_CORE`)."""
+        if self.host_core:
+            return HOST_CORE
+        if self.host_delta:
+            buf, _ = self._stage_a_hd(block, pre)
+            with stage("download"):
+                return self.link.download({"hd": buf})[0]
         return self.download(block.seq.shape, self.encode_device(block,
                                                                  pre))[0]
 
     def dispatch_pair(self, b1: ReadBlock, b2: ReadBlock,
                       pre1: Optional[Staged] = None,
-                      pre2: Optional[Staged] = None) -> List[Fetched]:
-        """:meth:`dispatch` of a pair: both mates' downloads."""
+                      pre2: Optional[Staged] = None) -> List:
+        """:meth:`dispatch` of a pair: both mates' downloads (host delta:
+        mate 2's buffer marked ``"hd2"``, its core ids in place of the
+        permutation)."""
+        if self.host_core:
+            return [HOST_CORE, HOST_CORE]
+        if self.host_delta:
+            buf1, perm = self._stage_a_hd(b1, pre1)
+            buf2 = self._stage_a_hd(b2, pre2, perm)
+            with stage("download"):
+                return self.link.download({"hd": buf1}, {"hd2": buf2})
         return self.download(b1.seq.shape, *self.encode_device_pair(
             b1, b2, pre1, pre2))
 
@@ -402,10 +620,29 @@ class BlockEncoder:
         with stage("download"):
             return self.link.download(*groups)
 
-    def assemble_pair(self, b1: ReadBlock, b2: ReadBlock,
-                      fetched: Sequence[Fetched]
+    def assemble_pair(self, b1: ReadBlock, b2: ReadBlock, fetched: Sequence
                       ) -> Tuple[EncodedBlock, EncodedBlock]:
         f1, f2 = fetched
+        if f1 is HOST_CORE:
+            # mate 1's cores and sort; mate 2 follows its permutation
+            n = b1.n_reads
+            with stage("host core"):
+                cores1 = native.core_match_block(
+                    b1.seq, b1.lengths, b1.exc_pos, n, self.cfg.core_k,
+                    self.cfg.dict_seed)
+            perm_np = np.concatenate(
+                [cores1[3], np.arange(n, b1.seq.shape[0], dtype=np.int64)])
+            return (self._assemble_hc(b1, cores=cores1),
+                    self._assemble_hc(b2, perm_np=perm_np, mate2=True))
+        a1 = f1.wait()
+        if "hd" in a1:
+            buf1 = a1["hd"].view(np.uint32)
+            # mate 2 follows mate 1's permutation, which only mate 1's
+            # buffer carries
+            perm_np = buf1[:b1.seq.shape[0]].astype(np.int64)
+            return (self._assemble_hd(b1, buf1),
+                    self._assemble_hd(b2, f2.wait()["hd2"].view(np.uint32),
+                                      with_perm=False, perm_np=perm_np))
         return self.assemble(b1, f1), self.assemble(b2, f2)
 
     def encode_block_pair(self, b1: ReadBlock, b2: ReadBlock
@@ -413,24 +650,117 @@ class BlockEncoder:
         """Paired-end: mate 1 defines the permutation, mate 2 follows."""
         return self.assemble_pair(b1, b2, self.dispatch_pair(b1, b2))
 
-    def assemble(self, block: ReadBlock, fetched: Fetched) -> EncodedBlock:
+    def assemble(self, block: ReadBlock, fetched) -> EncodedBlock:
         """The host half of assembly: wait for the block's downloads,
         then its payload bytes; the quality stream's lanes are gathered
         from the downloaded word matrix, or, for host-placed qualities,
         the host codec encodes the block's qualities through the sort
         permutation and the lossy map (the reference's ``_assemble``).
-        Reads nothing of the device."""
+        Host delta: the native match off the downloaded buffer; host
+        core: the whole block on the host.  Reads nothing of the
+        device."""
+        if fetched is HOST_CORE:
+            return self._assemble_hc(block)
         cfg = self.cfg
         B, L = block.seq.shape
         a = fetched.wait()
-        perm_np, len_np = a["perm"], a["len_s"]
-        delta_np = _delta_host(a)
+        if "hd" in a:
+            return self._assemble_hd(block, a["hd"].view(np.uint32))
+        enc_q = None
         if "packed" in a:
             with stage("pass B"):
                 enc_q = qualities.encoded_from_host(
                     a, B, L, qualities.pick_T(B, L, cfg.qual_T_target),
                     cfg.qual_context_order)
-        else:
+        return self._assemble(block, a["perm"], a["len_s"], _delta_host(a),
+                              enc_q)
+
+    def _assemble_hd(self, block: ReadBlock, buf: np.ndarray,
+                     with_perm: bool = True,
+                     perm_np: Optional[np.ndarray] = None) -> EncodedBlock:
+        """Host-delta assembly (the reference's): the downloaded packed
+        buffer, then the native byte-compare match (bit-identical to
+        ``_delta_seq``) on the rows ``gather_orient`` rebuilds."""
+        B, L = block.seq.shape
+        p, key, cp, rc, len_s = _hd_unpack(buf, B, with_perm)
+        if perm_np is None:
+            perm_np = p
+        n = block.n_reads
+        with stage("host delta"):
+            codes_s = native.gather_orient(block.seq, perm_np[:n], rc[:n],
+                                           len_s[:n])
+            if with_perm:        # mate-1 sorted frame: run-boundary bits
+                mask_bits, shifts, pred_k, lits = native.delta_match_runs(
+                    codes_s, key[:n], cp[:n], len_s[:n], _DELTA_K)
+            else:                # mate 2 (mate-1 order): core ids
+                mask_bits, shifts, pred_k, lits = native.delta_match(
+                    codes_s, key[:n], cp[:n], len_s[:n], _DELTA_K)
+        delta_np = {
+            "mask_bits": mask_bits, "shifts": shifts, "pred_k": pred_k,
+            "rc_bits": np.packbits(rc, bitorder="little"),
+            "lits": lits, "n_lits": len(lits),
+        }
+        return self._assemble(block, perm_np, len_s, delta_np)
+
+    def _assemble_hc(self, block: ReadBlock,
+                     perm_np: Optional[np.ndarray] = None,
+                     mate2: bool = False, cores=None) -> EncodedBlock:
+        """Host-core assembly (the reference's): the native canonical
+        matcher and stable bucket sort (``core_match_block``, bit-identical
+        to stage A), then the host-delta path's match and payloads."""
+        cfg = self.cfg
+        B, L = block.seq.shape
+        n = block.n_reads
+        with stage("host core"):
+            if cores is None:
+                cores = native.core_match_block(
+                    block.seq, block.lengths, block.exc_pos, n, cfg.core_k,
+                    cfg.dict_seed)
+            ck, cp, rc, perm_n = cores
+            if mate2:
+                order_n = perm_np[:n]      # follow mate 1's permutation
+            else:
+                order_n = perm_n
+                perm_np = np.concatenate(
+                    [perm_n, np.arange(n, B, dtype=np.int64)])
+            ck_s = ck[order_n]
+            cp_s = cp[order_n]
+            rc_s = rc[order_n]
+            len_n = block.lengths[order_n].astype(np.int64)
+            len_s = np.zeros(B, np.int32)
+            len_s[:n] = len_n
+        with stage("host delta"):
+            codes_s = native.gather_orient(block.seq, order_n, rc_s, len_n)
+            if mate2:                      # cores NOT contiguous runs
+                mask_bits, shifts, pred_k, lits = native.delta_match(
+                    codes_s, ck_s, cp_s, len_n, _DELTA_K)
+            else:
+                bnd = np.ones(n, np.uint8)
+                if n > 1:
+                    bnd[1:] = ((ck_s[1:] != ck_s[:-1])
+                               | (ck_s[1:] == np.uint32(core_match.NO_CORE))
+                               ).astype(np.uint8)
+                mask_bits, shifts, pred_k, lits = native.delta_match_runs(
+                    codes_s, bnd, cp_s, len_n, _DELTA_K)
+        rc_full = np.zeros(B, np.uint8)
+        rc_full[:n] = rc_s
+        delta_np = {
+            "mask_bits": mask_bits, "shifts": shifts, "pred_k": pred_k,
+            "rc_bits": np.packbits(rc_full, bitorder="little"),
+            "lits": lits, "n_lits": len(lits),
+        }
+        return self._assemble(block, perm_np, len_s, delta_np)
+
+    def _assemble(self, block: ReadBlock, perm_np: np.ndarray,
+                  len_np: np.ndarray, delta_np: Dict,
+                  enc_q=None) -> EncodedBlock:
+        """Payload bytes of one block from its permutation, sorted
+        lengths and delta products (``"lits"`` bytes from the host
+        match, or the device's literal words), and its encoded qualities
+        (None: the host codec encodes them here)."""
+        cfg = self.cfg
+        B, L = block.seq.shape
+        if enc_q is None:
             with stage("quality encode (host)"):
                 enc_q = qualities_host.encode_host(
                     block.qual, len_np, cfg.qual_context_order,

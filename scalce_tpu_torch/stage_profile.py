@@ -3,8 +3,11 @@ keep-order decompress through the port's drivers at ``-T 1``, their
 walls and peak device memory at ``-T 1``, ``-T 4`` and Config's default
 threads, and the device's busy share under ``torch.profiler`` at ``-T 1``
 and ``-T 4``, for a single-end file, a pair (``-r``), the single-end
-file lossy (``-p 30``) and the single-end file through
-``--data-parallel`` (one group per block on one card); and the
+file lossy (``-p 30``), the single-end file through
+``--data-parallel`` (one group per block on one card), the single-end
+file under the bare command's host qualities with the device, host
+delta and host core placements, and its keep-order decompress with
+``--delta-device``; and the
 data-parallel pass B's two functions, ``qualities.group_histogram`` and
 ``qualities.group_encode``, each timed whole (what builds its kernel's
 inputs included) on a group of 4 blocks and of 1.
@@ -27,10 +30,8 @@ their intervals) and the device time per kernel and per kind of copy
 (to or from pageable or page-locked host memory).  Each decompress must
 give the input bytes back (lossy: the names and sequences, and
 qualities of the input's lengths).  The last line of the output is one
-JSON object with every number printed.  The script uses only entry
-points that the port's earlier versions share (a version that ignores
-``threads`` runs every case serially), so it can also time a parent
-checkout: copy it there and run it from that checkout's root.
+JSON object with every number printed.  To time a parent checkout, run
+that checkout's own copy of the script from its root, in the same call.
 ``--dp-cards`` times the ``--data-parallel`` compress at ``-T 4`` over
 every visible card against one card (:func:`dp_cards`).
 """
@@ -64,9 +65,16 @@ SLICE = dict(block_reads=1 << 18, max_read_len=128, qual_T_target=2048,
              core_on_device=True, delta_on_device=True, qual_on_device=True,
              qual_context_order=1, dict_mode="hash", backend="gz", threads=1)
 
-#: the profiled cases: Config fields on top of SLICE
+#: the bare command's quality placement (host codec, per-block order)
+_BARE = {"qual_on_device": False, "qual_context_order": 0}
+#: the profiled cases: Config fields on top of SLICE (``decompress``: the
+#: decompress Config's)
 CASES = {"single": {}, "paired": {"paired": True}, "lossy": {"lossy_pct": 30},
-         "dp": {"data_parallel": True}}
+         "dp": {"data_parallel": True}, "bare": _BARE,
+         "host delta": {**_BARE, "delta_on_device": False},
+         "host core": {**_BARE, "delta_on_device": False,
+                       "core_on_device": False},
+         "delta device": {"decompress": {"delta_on_device": True}}}
 
 
 def _check(got: bytes, want: bytes, lossy: bool) -> None:
@@ -92,18 +100,19 @@ def _run(tmp: str, case: str, srcs: Sequence[str], datas: Sequence[bytes],
     on CUDA its peak device memory, and, when ``staged``, its seconds per
     stage (the rest of the wall -- setup, container open and close, less
     the parse's overlap with the other stages -- is ``other``)."""
-    extra = CASES[case]
-    out = os.path.join(tmp, case)
-    dec = os.path.join(tmp, case + "_d")
+    extra = dict(CASES[case])
+    dextra = extra.pop("decompress", {})
+    out = os.path.join(tmp, case.replace(" ", "_"))
+    dec = out + "_d"
     first = ".00_1.scalcen" if extra.get("paired") else ".00.scalcen"
     t = {} if threads is None else {"threads": threads}
     base = {k: v for k, v in SLICE.items() if k != "threads"}
     cfgs = {"compress": Config(inputs=tuple(srcs), output=out,
-                               **{**base, "block_reads": block_reads, **t},
-                               **extra),
+                               **{**base, "block_reads": block_reads, **t,
+                                  **extra}),
             "decompress": Config(mode="decompress", inputs=(out + first,),
                                  output=dec, keep_order=True,
-                                 qual_on_device=True, **t)}
+                                 qual_on_device=True, **t, **dextra)}
     result = {}
     for name, cfg in cfgs.items():
         if device.type == "cuda":

@@ -495,8 +495,9 @@ def _try_side_rans(arrays: Dict[str, np.ndarray], prefix: str,
 def payload(delta: Dict[str, np.ndarray], lengths: np.ndarray, n_reads: int,
             exc_pos: np.ndarray, exc_byte: np.ndarray,
             perm: np.ndarray, level: int = 6, backend: str = "gz") -> bytes:
-    """Short-read delta payload of one block (the device placement's
-    ``lit_packed`` words; i16 shifts)."""
+    """Short-read delta payload of one block (i16 shifts); the literals
+    are the device placement's ``lit_packed`` words or the host match's
+    ``lits`` bytes (the same bytes out either way)."""
     n_lits = int(delta["n_lits"])
     mb = np.ascontiguousarray(delta["mask_bits"][:n_reads])
     arrays = {
@@ -510,7 +511,9 @@ def payload(delta: Dict[str, np.ndarray], lengths: np.ndarray, n_reads: int,
         "perm_pk": _bitpack_u32(perm[:n_reads].astype(np.uint32),
                                 _perm_bits(n_reads)),
     }
-    if n_lits:
+    if "lits" in delta:
+        lits = delta["lits"]
+    elif n_lits:
         lits = unpack2bit_np(delta["lit_packed"].astype(np.uint32), n_lits)
     else:
         lits = np.zeros(0, np.uint8)
@@ -524,7 +527,12 @@ def payload(delta: Dict[str, np.ndarray], lengths: np.ndarray, n_reads: int,
         arrays["lit_words"] = words
     else:
         arrays["lit_mode"] = np.asarray([0], np.uint8)
-        arrays["lit_packed"] = delta["lit_packed"]
+        if "lit_packed" in delta:
+            arrays["lit_packed"] = delta["lit_packed"]
+        else:
+            padded = np.zeros(((n_lits + 15) // 16) * 16, np.uint8)
+            padded[:n_lits] = lits[:n_lits]
+            arrays["lit_packed"] = _pack2bit_np(padded)
     zz = _zigzag16(np.ascontiguousarray(delta["shifts"][:n_reads]))
     sh_stream = np.concatenate([(zz & 0xFF).astype(np.uint8),
                                 (zz >> 8).astype(np.uint8)])
@@ -558,13 +566,17 @@ def payload(delta: Dict[str, np.ndarray], lengths: np.ndarray, n_reads: int,
         level=level, backend=backend)
 
 
-def parse(blob: bytes, B: int, L: int
-          ) -> Tuple[np.ndarray, np.ndarray, int, np.ndarray, np.ndarray,
-                     np.ndarray, np.ndarray]:
-    """Payload -> (codes u8 [B, L] (canonical orientation), lengths i32
-    [B], n_reads, exc_pos, exc_byte, perm, rc bool [B]), by the serial
-    host delta walk.  Reads every short-read layout the reference
-    writes; long-read (shv4) blocks are ROADMAP Queue 1 item 11c."""
+def parse_fields(blob: bytes, B: int, L: int, delta_device: bool = False):
+    """Everything of :func:`parse` but the reconstruction (host arrays
+    only): ``(fields, lengths i32 [B], n_reads, exc_pos, exc_byte, perm,
+    rc bool [B])``, ``fields`` the validated delta products of the
+    ``n_reads`` rows (``mask_bits``, ``shifts`` i64, ``pred_k`` u8,
+    ``lits`` u8, and ``native``: the checked native walk applies).  The
+    deep validation runs when ``delta_device`` or the native walk cannot
+    (the reference's rule): the device reconstruction's gathers are
+    unchecked, so a corrupt block raises ``ValueError`` here.  Reads
+    every short-read layout the reference writes; long-read (shv4)
+    blocks are ROADMAP.md Queue 1 item 11c."""
     a = container.unpack_arrays(blob)
     n = int(a["n_reads"][0])
     n_lits = int(a["n_lits"][0])
@@ -613,19 +625,42 @@ def parse(blob: bytes, B: int, L: int
     fits16 = n == 0 or (sh64.ndim == 1
                         and int(np.abs(sh64).max()) < (1 << 15))
     use_native = _NATIVE and fits16
-    _validate(a, n, B, L, n_lits, deep=not use_native)
+    _validate(a, n, B, L, n_lits, deep=delta_device or not use_native)
     if int(a["lit_mode"][0]) if "lit_mode" in a else 0:
         lits = _decode_lits_rans(a, n_lits)
     else:
         lits = unpack2bit_np(a["lit_packed"].astype(np.uint32), n_lits)
     lengths = np.zeros(B, np.int32)
     lengths[:n] = a["lengths"].astype(np.int32)
-    codes = np.zeros((B, L), np.uint8)
-    _reconstruct(a["mask_bits"],
-                 sh64.astype(np.int16) if use_native else sh64,
-                 a["pred_k"].astype(np.uint8), lits,
-                 lengths[:n].astype(np.int64), L, codes)
     rc = np.zeros(B, bool)
     rc[:n] = np.unpackbits(a["rc_bits"], bitorder="little")[:n].astype(bool)
-    return codes, lengths, n, a["exc_pos"].astype(np.int64), \
+    fields = {"mask_bits": a["mask_bits"], "shifts": sh64,
+              "pred_k": a["pred_k"].astype(np.uint8), "lits": lits,
+              "native": use_native}
+    return fields, lengths, n, a["exc_pos"].astype(np.int64), \
         a["exc_byte"], a["perm"].astype(np.int64), rc
+
+
+def parse(blob: bytes, B: int, L: int, delta_device: bool = False,
+          device="cpu"
+          ) -> Tuple[np.ndarray, np.ndarray, int, np.ndarray, np.ndarray,
+                     np.ndarray, np.ndarray]:
+    """Payload -> (codes u8 [B, L] (canonical orientation), lengths i32
+    [B], n_reads, exc_pos, exc_byte, perm, rc bool [B]): by the serial
+    host delta walk, or with ``delta_device`` by pointer doubling on
+    ``device`` (``ops/delta_decode.py``, blocking; the same bytes)."""
+    fields, lengths, n, *rest = parse_fields(blob, B, L, delta_device)
+    codes = np.zeros((B, L), np.uint8)
+    sh = fields["shifts"]
+    if delta_device:
+        from scalce_tpu_torch.ops import delta_decode
+        delta_decode.reconstruct_device(
+            fields["mask_bits"], sh.astype(np.int32),
+            fields["pred_k"].astype(np.int32), fields["lits"], lengths[:n],
+            B, L, codes, device)
+    else:
+        _reconstruct(fields["mask_bits"],
+                     sh.astype(np.int16) if fields["native"] else sh,
+                     fields["pred_k"], fields["lits"],
+                     lengths[:n].astype(np.int64), L, codes)
+    return (codes, lengths, n, *rest)

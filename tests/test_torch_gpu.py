@@ -560,3 +560,138 @@ def test_card_pipeline_never_blocks_on_the_card(cuda, tmp_path):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert open(os.path.join(tmp_path, "d.fastq"), "rb").read() == datas[0]
+
+
+@pytest.mark.parametrize("mode", ["lut", "lcp"])
+@pytest.mark.parametrize("B,L,k", [(1000, 128, 12), (513, 101, 10),
+                                   (300, 160, 8), (1, 12, 12)])
+def test_core_rank_lut_kernel(cuda, mode, B, L, k):
+    """K1's rank-LUT variant against its plain version: ragged rows with
+    N bases, homopolymer runs (the tables' demoted classes and ties),
+    empty and short reads."""
+    from scalce_tpu_torch.models import core_dict
+    lut = (core_dict.build_rank_lut if mode == "lut"
+           else core_dict.build_rank_lut_lcp)(k, 0x5CA1CE)
+    rng = np.random.default_rng(B + L + k)
+    codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    codes[: B // 3, : L // 2] = 1
+    lengths = rng.integers(0, L + 1, B)
+    lengths[B // 2:: 7] = 0
+    lengths[B // 2 + 1:: 7] = k - 1
+    exc = rng.random((B, L)) < 0.02
+    args = [torch.from_numpy(a).to(cuda) for a in (codes, exc, lengths)]
+    t = torch.from_numpy(lut.view(np.int32)).to(cuda)
+    launches = core_rank.core_rank_codes.launches
+    _equal(core_rank.core_rank_codes(*args, k, 0, t),
+           core_rank.core_rank_codes_plain(*args, k, 0, t))
+    assert core_rank.core_rank_codes.launches == launches + 1
+
+
+def test_core_rank_lut_kernel_rejects_bad_tables(cuda):
+    codes = torch.zeros((4, 16), dtype=torch.uint8, device=cuda)
+    exc = torch.zeros((4, 16), dtype=torch.bool, device=cuda)
+    lengths = torch.full((4,), 16, device=cuda)
+    for lut, k in ((torch.zeros(4 ** 6, dtype=torch.int32, device=cuda), 7),
+                   (torch.zeros(4 ** 6, dtype=torch.int64, device=cuda), 6),
+                   (torch.zeros(4 ** 6, dtype=torch.int32), 6),
+                   (torch.zeros(4 ** 13, dtype=torch.int32, device=cuda),
+                    13)):
+        with pytest.raises((ValueError, TypeError)):
+            core_rank.core_rank_codes(codes, exc, lengths, k, 0, lut)
+
+
+def test_reconstruct_on_card_matches_host_walk(cuda, tmp_path):
+    """``ops/delta_decode.py`` on the card equals the serial host walk on
+    every block of a triplet with deep copy chains."""
+    from scalce_tpu_torch import container
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.pipeline import driver
+    from scalce_tpu_torch.streams import seqs
+    from scalce_tpu_torch.utils.synth import synth_fastq
+    src = os.path.join(tmp_path, "in.fastq")
+    with open(src, "wb") as f:
+        f.write(synth_fastq(5000, 100, seed=99, var_len=True, n_rate=0.01,
+                            rc_rate=0.4, genome_len=4000))
+    driver.compress(Config(inputs=(src,), output=os.path.join(tmp_path, "o"),
+                           block_reads=2048, max_read_len=128, backend="gz",
+                           core_on_device=False, delta_on_device=False),
+                    "cpu")
+    reader = container.TripletReader(os.path.join(tmp_path, "o.00.scalcen"))
+    B, L = reader.meta["block_reads"], reader.meta["max_read_len"]
+    for _, payloads in reader.iter_blocks():
+        host = seqs.parse(payloads["r"], B, L)
+        card = seqs.parse(payloads["r"], B, L, delta_device=True,
+                          device=cuda)
+        for h, c in zip(host, card):
+            np.testing.assert_array_equal(h, c)
+
+
+@pytest.mark.parametrize("case", ["host delta", "host delta pair",
+                                  "host delta dp", "lut", "lcp host delta"])
+def test_card_placements_match_cpu(cuda, tmp_path, case):
+    """The new placements and dictionaries on the card write the CPU's
+    triplets; --delta-device on the card gives the input back; nothing
+    waits for the card on the way (sync debug mode "error")."""
+    import glob
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.pipeline import driver
+    paths, datas = _pipeline_inputs(tmp_path, "pair" in case)
+    kw = dict(block_reads=256, max_read_len=128, backend="gz", threads=4,
+              core_on_device=True, delta_on_device="host" not in case,
+              data_parallel="dp" in case, paired="pair" in case,
+              dict_mode="lcp" if "lcp" in case else
+              "lut" if "lut" in case else "hash", core_k=12)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        prefix = os.path.join(tmp_path, dev)
+        if dev == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            stats = _bounded(driver.compress, Config(
+                inputs=paths, output=prefix, **kw), dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert stats.placement == "device"
+        outs[dev] = [open(p, "rb").read() for p in
+                     sorted(glob.glob(prefix + ".*.scalce[nrq]"))]
+    assert outs["cpu"] == outs["cuda"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = ".00_1.scalcen" if "pair" in case else ".00.scalcen"
+        _bounded(driver.decompress, Config(
+            mode="decompress", inputs=(os.path.join(tmp_path, "cuda")
+                                       + first,),
+            output=os.path.join(tmp_path, "d"), keep_order=True,
+            delta_on_device=True, threads=4), "cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = [os.path.join(tmp_path, f"d_{m}.fastq") for m in (1, 2)] \
+        if "pair" in case else [os.path.join(tmp_path, "d.fastq")]
+    for path, data in zip(got, datas):
+        assert open(path, "rb").read() == data
+
+
+def test_card_host_core_allocates_nothing(cuda, tmp_path):
+    """Host core on a CUDA device: the CPU's triplet, no K1 launch, no
+    device memory."""
+    import glob
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.pipeline import driver
+    paths, _ = _pipeline_inputs(tmp_path, False)
+    kw = dict(block_reads=256, max_read_len=128, backend="gz", threads=4,
+              core_on_device=False, delta_on_device=False)
+    outs = {}
+    launches = core_rank.core_rank_codes.launches
+    for dev in ("cpu", "cuda"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        prefix = os.path.join(tmp_path, dev)
+        stats = _bounded(driver.compress, Config(inputs=paths, output=prefix,
+                                                 **kw), dev)
+        assert stats.placement == "host"
+        assert torch.cuda.max_memory_allocated() == before
+        outs[dev] = [open(p, "rb").read() for p in
+                     sorted(glob.glob(prefix + ".*.scalce[nrq]"))]
+    assert outs["cpu"] == outs["cuda"]
+    assert core_rank.core_rank_codes.launches == launches

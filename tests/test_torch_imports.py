@@ -71,7 +71,8 @@ def test_import_walk_sees_a_reference_import(tmp_path):
 
 
 def test_cli_round_trip_loads_no_reference_module(tmp_path):
-    """A compress, a keep-order decompress, a -r pair and a -p file
+    """A compress, a keep-order decompress, a -r pair, a -p file, host
+    cores, AUTO with the lcp dictionary and a --delta-device decompress
     through the port's CLI in a fresh process: no module named
     scalce_tpu or scalce_tpu.* is ever loaded."""
     src = os.path.join(tmp_path, "in.fastq")
@@ -96,8 +97,14 @@ def test_cli_round_trip_loads_no_reference_module(tmp_path):
         main(base + ["-p", "30", "-S", "300", "-o", out + "/l", {src!r}])
         main(["--device", "cpu", "-d", "-o", out + "/ld",
               out + "/l.00.scalcen"])
+        main(base + ["--core-placement", "host", "-o", out + "/h", {src!r}])
+        main(base + ["--core-placement", "auto", "--dict-mode", "lcp",
+                     "--core-k", "8", "-o", out + "/a", {src!r}])
+        main(["--device", "cpu", "-d", "--delta-device", "--keep-order",
+              "-o", out + "/hd", out + "/h.00.scalcen"])
         assert open(out + "/d.fastq", "rb").read() == \\
-            open({src!r}, "rb").read()
+            open({src!r}, "rb").read() == \\
+            open(out + "/hd.fastq", "rb").read()
         loaded = sorted(m for m in sys.modules
                         if m == "scalce_tpu" or m.startswith("scalce_tpu."))
         assert not loaded, loaded
@@ -245,6 +252,7 @@ COPIES = {"config.py": "config.py", "container.py": "container.py",
           "version.py": "version.py", "cli_args.py": "cli.py",
           "io/__init__.py": "io/__init__.py", "io/fastq.py": "io/fastq.py",
           "io/backend.py": "io/backend.py",
+          "models/core_dict.py": "models/core_dict.py",
           "native/__init__.py": "native/__init__.py",
           "pipeline/threads.py": "pipeline/driver.py",
           "streams/names.py": "streams/names.py",
@@ -424,7 +432,27 @@ def _native_cases():
                                      lengths[perm], 64, 96, 384, 2)
         return states, wc, words, back2, back
 
+    def host_core(lib, rng):
+        """The host placements' chain: the core matcher and sort, the
+        oriented rows, both delta matches."""
+        B, L = 200, 96
+        codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
+        codes[:60] = codes[60:120]                   # shared cores
+        lengths = rng.integers(20, L + 1, B).astype(np.int32)
+        exc_pos = np.sort(rng.choice(B * L, 50, replace=False))
+        ck, cp, rc, perm = lib.core_match_block(codes, lengths, exc_pos,
+                                                190, 12, 0x5CA1CE)
+        len_s = lengths[perm]
+        rows = lib.gather_orient(codes, perm, rc[perm], len_s)
+        bnd = np.ones(190, np.uint8)
+        bnd[1:] = ck[perm][1:] != ck[perm][:-1]
+        return (ck, cp, rc, perm, rows,
+                *lib.delta_match_runs(rows, bnd, cp[perm], len_s, 4),
+                *lib.delta_match(rows, ck[perm], cp[perm], len_s, 4))
+
     return {"ragged_gather_u8": ragged_gather,
+            "core_match_block/gather_orient/delta_match_runs/delta_match":
+            host_core,
             "ragged_scatter_u8": ragged_scatter,
             "bitpack_u32/bitunpack_u32": bitpack,
             "pack2bit/unpack2bit": pack2bit,

@@ -40,18 +40,28 @@ def test_stage_profile_cpu(capsys):
     result = stage_profile.profile("cpu", reads=1500, block_reads=1024)
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
         == result
+    bare = COMPRESS_STAGES - {"pass B"} | {"quality encode (host)"}
     compress = {"single": COMPRESS_STAGES,
                 "lossy": COMPRESS_STAGES | {"lossy preamble"},
                 "paired": COMPRESS_STAGES | {"stage A (mate 2)",
                                              "stage B (mate 2)"},
                 "dp": COMPRESS_STAGES - {"stage A", "stage B"}
-                | {"stage A+B"}}
+                | {"stage A+B"},
+                "bare": bare,
+                "host delta": bare - {"stage B"} | {"host delta"},
+                "host core": bare - {"upload", "stage A", "stage B",
+                                     "download"} | {"host core",
+                                                    "host delta"},
+                "delta device": COMPRESS_STAGES}
+    decompress = {"delta device": DECOMPRESS_STAGES
+                  | {"delta decode (device)"}}
     assert set(result["cases"]) == set(compress)
     assert "dp_functions_ms" not in result       # timed on a card only
     for case, res in result["cases"].items():
         assert res["input_bytes"] > 0 and "profiled" not in res
         for name, want in (("compress", compress[case]),
-                           ("decompress", DECOMPRESS_STAGES)):
+                           ("decompress", decompress.get(
+                               case, DECOMPRESS_STAGES))):
             run = res["staged"][name]
             assert set(run["stages_s"]) == want
             assert all(s >= 0 for k, s in run["stages_s"].items()

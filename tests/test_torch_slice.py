@@ -151,14 +151,19 @@ def test_cli_round_trip_imports_no_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
 
 
+#: what the port still lacks: multi-host (item 16) and long reads (11c),
+#: under each placement and dictionary
+HOST = dict(qual_on_device=False, delta_on_device=False)
+
+
 @pytest.mark.parametrize("change", [
-    dict(dict_mode="lcp"), dict(paired=True, inputs=("a", "b"), n_hosts=2),
-    dict(dict_mode="lut"), dict(core_on_device=None),
-    dict(qual_on_device=False, delta_on_device=False, core_on_device=False),
+    dict(dict_mode="lcp", n_hosts=2),
+    dict(paired=True, inputs=("a", "b"), n_hosts=2),
+    dict(dict_mode="lut", n_hosts=2), dict(core_on_device=None, n_hosts=2),
+    dict(HOST, core_on_device=False, n_hosts=2),
     dict(data_parallel=True, n_hosts=2), dict(n_hosts=2),
-    dict(qual_on_device=False, delta_on_device=False),
-    dict(max_read_len=32768, block_reads=256, core_on_device=None,
-         delta_on_device=False, qual_on_device=False)])
+    dict(HOST, max_read_len=32768, block_reads=256, core_on_device=False),
+    dict(HOST, max_read_len=32768, block_reads=256, core_on_device=None)])
 def test_configs_outside_the_slice_raise(change):
     cfg = Config(**{**SLICE, "inputs": ("in.fastq",), **change})
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
