@@ -79,6 +79,19 @@ Phases (the first failure exits non-zero; no phase is caught):
      phase 4's triplet gives the input back, equal to the host walk's
      output, with the reconstruction's device ms per block and both
      decompress walls
+ 12. the rest of the feature surface: a HiFi-like long-read file (2,048
+     reads of 10-20 kbp from a 1 Mbp genome, 0.5% substitutions, 0.2%
+     indels; ``--max-read-len 32768 --block-reads 512``, ``-T 4``)
+     through the bare command in a child process must round-trip in
+     keep-order with no device memory allocated, its sequence stream
+     under the 2-bit floor / 1.08 (the reference's own gate for
+     indel-bearing long reads); two ranks of
+     ``scalce_tpu_torch.parallel.multihost`` on localhost sharing the
+     card, at phase 4's Config and at phase 8's ``-p 30``, must merge
+     to phase 4's and phase 8's triplets with K1-K3 launched as often
+     across the ranks; phase 4's compress and keep-order decompress
+     through the CLI under ``--profile`` must give phase 4's triplet and
+     the input back, with traces naming the stages and K1-K4
 
 The line before the last is the card's name and power limit; the one
 before that is a JSON object with one entry per kernel (``launches``:
@@ -906,11 +919,9 @@ def check_pipelined(src: str, data: bytes, tmp: str, kernels: dict,
 def cli_config(argv, **change):
     """The Config that ``scalce_tpu_torch.cli.main(argv)`` compresses
     with, with ``change`` on top (placements the CLI has no flag for)."""
-    from scalce_tpu_torch import cli, cli_args
+    from scalce_tpu_torch import cli
     args = cli.build_parser().parse_args(argv)
-    if args.delta_device is None:                           # as cli.main
-        args.delta_device = args.core_placement == "device"
-    return dataclasses.replace(cli_args.config_from_args(args), **change)
+    return dataclasses.replace(cli.config_from_args(args), **change)
 
 
 def check_placements(src: str, data: bytes, rag: str, tmp: str,
@@ -1079,6 +1090,255 @@ def check_placements(src: str, data: bytes, rag: str, tmp: str,
     return lut_launches["K1"]
 
 
+#: phase 4's Config (``SLICE``) as flags of the port's command line
+SLICE_FLAGS = ["--block-reads", str(SLICE["block_reads"]), "--max-read-len",
+               str(SLICE["max_read_len"]), "--core-placement", "device",
+               "--delta-device", "--qual-device", "--qual-order", "1",
+               "-c", "gz", "-T", "1"]
+#: phase 12's long-read file: HiFi-like reads from a 1 Mbp genome (~30x)
+LONG = dict(n_reads=2048, min_len=10_000, max_len=20_000,
+            genome_len=1_000_000, sub=0.005, ins=0.001, dele=0.001, seed=12)
+LONG_FLAGS = ["--max-read-len", "32768", "--block-reads", "512", "-T", "4"]
+#: the device of phase 12's child processes
+DEVICE = "cuda"
+
+#: child of phase 12: the bare command on the long-read file and its
+#: keep-order decompress, on the card; prints walls, peak device memory
+#: and the host RSS (at the start, and the peak sampled every 20 ms
+#: during each run; null where /proc gives no resident size) as JSON.
+#: getrusage's ru_maxrss would keep the parent's peak across fork and
+#: exec, and the card's machine has no VmHWM
+LONG_CHILD = """
+import json, os, sys, threading, time
+import torch
+from scalce_tpu_torch import cli
+
+def rss_mb():
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+    except (OSError, ValueError, IndexError):
+        return None
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2 ** 20 if pages else None
+
+def sampled(fn):
+    peak, stop = [rss_mb()], threading.Event()
+
+    def sample():
+        while peak[0] is not None and not stop.wait(0.02):
+            now = rss_mb()
+            peak[0] = None if now is None else max(peak[0], now)
+    t = threading.Thread(target=sample)
+    t.start()
+    try:
+        fn()
+    finally:
+        stop.set()
+        t.join()
+    return peak[0]
+
+src, out, device, flags = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4:]
+res = {"start_rss_mb": rss_mb()}
+for name, argv in (("compress", [src, *flags, "-o", out]),
+                   ("decompress", ["-d", "--keep-order", "-T", "4", "-o",
+                                   out + "_d", out + ".00.scalcen"])):
+    argv += ["--device", device]
+    t0 = time.monotonic()
+    res[name + "_rss_mb"] = sampled(lambda: cli.main(argv))
+    res[name + "_s"] = time.monotonic() - t0
+    res[name + "_peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                 if torch.cuda.is_initialized() else 0)
+print(json.dumps(res))
+"""
+
+#: child of phase 12: one rank of ``parallel.multihost``, then its launch
+#: counts of K1-K4 as JSON
+RANK_CHILD = """
+import json, sys
+from scalce_tpu_torch.ops import core_rank, rans_decode, rans_encode
+from scalce_tpu_torch.parallel import multihost
+from scalce_tpu_torch.streams import qualities
+multihost.main(sys.argv[1:])
+print(json.dumps({"K1": core_rank.core_rank_codes.launches,
+                  "K2": qualities.sym_ctx_hist.launches,
+                  "K3": rans_encode.encode_scan.launches,
+                  "K4": rans_decode.decode_quals.launches}))
+"""
+
+
+def run_children(argvs, timeout: int = 600) -> list:
+    """Run the command lines side by side from this script's directory;
+    the lines of each one's standard output; raise with a child's
+    standard error if one fails (every child is stopped on the way out)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(a, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=here)
+             for a in argvs]
+    outs = []
+    try:
+        for a, p in zip(argvs, procs):
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode:
+                raise AssertionError(f"{a[:4]} exited {p.returncode}:\n"
+                                     f"{err[-3000:]}")
+            outs.append(out.strip().splitlines())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def mb_or_not(x) -> str:
+    return "not measured" if x is None else f"{x:.0f}"
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_two_ranks(src: str, tmp: str, name: str, flags, want_prefix: str,
+                    want_launches: dict, smi: str) -> None:
+    """Two ranks of ``parallel.multihost`` on localhost, sharing the card
+    (``cuda:R % cards``): rank 0's merged triplet must be ``want_prefix``'s,
+    and K1-K3 must launch as often across the ranks as in that run (K4
+    decodes: none)."""
+    out = os.path.join(tmp, name)
+    port = free_port()
+    t0 = time.monotonic()
+    outs = run_children([
+        [sys.executable, "-c", RANK_CHILD, src, "-o", out, "--coordinator",
+         f"localhost:{port}", "--num-processes", "2", "--process-id",
+         str(rank), "--stats-json", *flags] for rank in range(2)])
+    wall = time.monotonic() - t0
+    ranks = [json.loads(lines[-1]) for lines in outs]
+    rank_s = [json.loads(lines[-2])["wall_s"] for lines in outs]
+    total = {k: sum(r[k] for r in ranks) for k in ("K1", "K2", "K3", "K4")}
+    want = {k: want_launches[k] for k in ("K1", "K2", "K3")}
+    if triplet(out) != triplet(want_prefix):
+        raise AssertionError(f"{name}: the two ranks' merged triplet != "
+                             f"{os.path.basename(want_prefix)}'s")
+    if {k: total[k] for k in want} != want or total["K4"]:
+        raise AssertionError(f"{name}: launches over the ranks {total}, "
+                             f"want {want} and no K4")
+    say(f"two ranks ({name}): merged triplet equals "
+        f"{os.path.basename(want_prefix)}'s (phase {'8' if '-p' in flags else '4'}); "
+        f"launches over the ranks {total}, per rank {ranks}; each rank's "
+        f"compress {', '.join(f'{x:.3f}' for x in rank_s)} s, "
+        f"{wall:.3f} s from launch to both exits (starts, barrier and "
+        f"merge included) | {smi}")
+
+
+def spans_and_kernels(trace: str):
+    """(user span names, {kernel kind: events}) of one Chrome trace."""
+    import collections
+    from scalce_tpu_torch import stage_profile
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    kinds = collections.Counter(stage_profile._kind(e["name"])
+                                for e in events if e.get("cat") == "kernel")
+    return spans, dict(kinds)
+
+
+def check_feature_surface(src: str, data: bytes, tmp: str, smi: str,
+                          t1: dict) -> None:
+    """Phase 12: long reads through the bare command (on the host, no
+    device memory), two ranks of ``parallel.multihost`` at phase 4's and
+    phase 8's Configs, and phase 4's compress and decompress through the
+    CLI under ``--profile``."""
+    from scalce_tpu_torch.utils.longread import synth_long_fastq
+    lsrc = os.path.join(tmp, "hifi.fastq")
+    ldata = synth_long_fastq(**LONG)
+    with open(lsrc, "wb") as f:
+        f.write(ldata)
+    bases = sum(len(s) for s in ldata.split(b"\n")[1::4])
+    lout = os.path.join(tmp, "hifi")
+    (lines,) = run_children([[sys.executable, "-c", LONG_CHILD, lsrc, lout,
+                              DEVICE, *LONG_FLAGS]], timeout=900)
+    res = json.loads(lines[-1])
+    with open(lout + "_d.fastq", "rb") as f:
+        if f.read() != ldata:
+            raise AssertionError("long reads: keep-order decompress != "
+                                 "input")
+    seq_bytes = os.path.getsize(lout + ".00.scalcer")
+    comp = sum(len(b) for _, b in triplet(lout))
+    floor = bases / 4
+    if res["compress_peak_bytes"] or res["decompress_peak_bytes"]:
+        raise AssertionError(f"long reads touched the card: {res}")
+    # the reference's own v7 gate for indel-bearing long reads
+    # (tests/test_edge_cases.py: 1.08x under the 2-bit floor)
+    if seq_bytes * 1.08 >= floor:
+        raise AssertionError(f"long reads: seq stream {seq_bytes} B not "
+                             f"under the 2-bit floor {floor:.0f} B / 1.08")
+    mb = len(ldata) / 1e6
+    say(f"long reads ({LONG['n_reads']} reads, {bases} bases, "
+        f"{' '.join(LONG_FLAGS)}): keep-order round trip exact; ratio "
+        f"{len(ldata) / comp:.4f}; seq stream {seq_bytes} B = 2-bit floor "
+        f"/ {floor / seq_bytes:.4f}; compress {res['compress_s']:.3f} s = "
+        f"{mb / res['compress_s']:.2f} MB/s, decompress "
+        f"{res['decompress_s']:.3f} s = {mb / res['decompress_s']:.2f} "
+        f"MB/s; peak device memory {res['compress_peak_bytes']} / "
+        f"{res['decompress_peak_bytes']} B; host RSS (MB) "
+        f"{mb_or_not(res['start_rss_mb'])} at the start, peak "
+        f"{mb_or_not(res['compress_rss_mb'])} in the compress, "
+        f"{mb_or_not(res['decompress_rss_mb'])} in the decompress | {smi}")
+
+    check_two_ranks(src, tmp, "mh", SLICE_FLAGS, t1["main"]["prefix"],
+                    t1["main"]["launches"], smi)
+    check_two_ranks(src, tmp, "mh_lossy", SLICE_FLAGS + ["-p", str(LOSSY_PCT)],
+                    t1["lossy"]["prefix"], t1["lossy"]["launches"], smi)
+
+    # --profile as a user runs it: one command line per run, each in its
+    # own process
+    prof = os.path.join(tmp, "prof")
+    out = os.path.join(tmp, "prof_main")
+    walls, found = {}, {}
+    for mode, argv in (("compress", [src, *SLICE_FLAGS, "-o", out]),
+                       ("decompress", ["-d", "--keep-order", "--qual-device",
+                                       "-T", "1", "-o", out + "_d",
+                                       out + ".00.scalcen"])):
+        (lines,) = run_children([[sys.executable, "-m", "scalce_tpu_torch",
+                                  *argv, "--device", DEVICE, "--stats-json",
+                                  "--profile", os.path.join(prof, mode)]])
+        walls[mode] = json.loads(lines[-1])["wall_s"]
+    if triplet(out) != triplet(t1["main"]["prefix"]):
+        raise AssertionError("--profile: triplet != phase 4's")
+    with open(out + "_d.fastq", "rb") as f:
+        if f.read() != data:
+            raise AssertionError("--profile: decompress != input")
+    want_spans = {"compress": {"parse FASTQ", "upload", "stage A",
+                               "stage B", "pass B", "download",
+                               "seqs.payload", "write"},
+                  "decompress": {"seqs.parse", "quality decode", "_finish",
+                                 "render FASTQ", "write"}}
+    want_kinds = {"compress": {k: t1["main"]["launches"][k]
+                               for k in ("K1", "K2", "K3")},
+                  "decompress": {"K4": t1["main decompress"]["launches"]
+                                 ["K4"]}}
+    for mode in walls:
+        (trace,) = glob.glob(os.path.join(prof, mode, "*.trace.json"))
+        spans, kinds = spans_and_kernels(trace)
+        launched = {k: kinds.get(k, 0) for k in want_kinds[mode]}
+        if not want_spans[mode] <= spans or launched != want_kinds[mode]:
+            raise AssertionError(
+                f"--profile {mode}: spans missing "
+                f"{want_spans[mode] - spans}, kernel events {kinds}, want "
+                f"{want_kinds[mode]}")
+        found[mode] = (len(spans), launched, os.path.getsize(trace))
+    say(f"--profile (the CLI, one process per run): phase 4's triplet and "
+        f"the input back; the traces name the stages and kernels (spans, "
+        f"kernel events, trace bytes: {found}); the CLI's walls under the "
+        f"profiler compress {walls['compress']:.3f} s (phase 4 unprofiled "
+        f"{t1['main']['wall_s']:.3f} s), decompress "
+        f"{walls['decompress']:.3f} s (unprofiled "
+        f"{t1['main decompress']['wall_s']:.3f} s) | {smi}")
+
+
 def main() -> int:
     smi = card()                                              # phase 1
     from scalce_tpu_torch.ops import (_cuda, core_rank, hist, histogram,
@@ -1163,6 +1423,7 @@ def main() -> int:
         t4 = check_pipelined(src, data, tmp, kernels, smi, t1)  # phase 10
         measured["K1 lut"]["launches"] = check_placements(
             src, data, rag, tmp, kernels, smi, t1)              # phase 11
+        check_feature_surface(src, data, tmp, smi, t1)          # phase 12
         launches_t4 = {n: t4["main decompress"]["launches"][n]
                        for n in main_path}
         launches_t4.update(K5=t4["dp"]["launches"]["K5"],

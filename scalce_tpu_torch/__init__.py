@@ -4,7 +4,8 @@ A FASTQ codec: reads are reordered by a locally-consistent core k-mer,
 each sequence is coded as a delta against aligned predecessors, and
 qualities go through a context-modelled interleaved rANS coder.
 Single-end or paired-end (``_1``/``_2`` triplets in pair sync), lossless
-or with a lossy quality map.  Every payload byte equals what
+or with a lossy quality map, short reads or long (minimizer order on the
+host), on one host or several.  Every payload byte equals what
 ``scalce_tpu`` writes for the same input and Config, so triplets
 cross-decode between the two packages.
 
@@ -16,7 +17,8 @@ Layout (counterparts of ``scalce_tpu``'s subpackages):
   models/     rANS table normalization, the lossy quality map
   streams/    sequence and quality payload codecs
   pipeline/   block encoder/decoder and the compress/decompress drivers
-  parallel/   data parallelism over the devices of one host
+  parallel/   data parallelism over the devices of one host, and over
+              hosts (torch.distributed, the ordered merge)
   io/, native/, container, config, utils/
               host modules: copies of the reference's (FASTQ I/O, the
               native C library, the file container, Config, synthetic

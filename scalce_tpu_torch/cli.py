@@ -18,32 +18,64 @@ defaults: the qualities are coded on the host, each block at the context
 order that its trial picks (``--qual-order 0``), so the bare command
 writes ``python -m scalce_tpu``'s bytes; ``--qual-device`` with a fixed
 ``--qual-order`` codes them on the device (kernels K2-K6), and
-``--qual-device`` on decompress decodes them there (K4).  The cores and
-the delta run on the device by default (the placement defaults move
-there; they change no byte), and the backend is the best installed one.
-``--core-placement host`` runs the whole block on the host (the native
-core matcher, sort and delta match; nothing reaches a device), and
-``--core-placement auto`` measures the link to the device once and
-keeps the cores on the host below 200 MB/s; with either, the delta match
-runs on the host too, as the reference's defaults have it.
+``--qual-device`` on decompress decodes them there (K4).  For short
+reads the cores and the delta run on the device by default (the
+placement defaults move there; they change no byte), and the backend is
+the best installed one.  An input whose width resolves above 32752
+(``--max-read-len``, or the probe of its head) is a long-read file: the
+bare command then keeps the reference's placement defaults, and long
+reads run on the host (minimizer order and anchored delta, container
+v7); an explicit device placement there raises the reference's
+ValueError.  ``--core-placement host`` runs the whole block on the host
+(the native core matcher, sort and delta match; nothing reaches a
+device), and ``--core-placement auto`` measures the link to the device
+once and keeps the cores on the host below 200 MB/s; with either, the
+delta match runs on the host too, as the reference's defaults have it.
 ``--dict-mode lut|lcp`` ranks cores by an explicit 4^k table (core k <=
 12; K1's table variant on the card).  ``-d --delta-device`` rebuilds
 the sequences by pointer doubling on the device in place of the host's
-serial walk.  Long reads, multi-host and ``--profile`` raise
-NotImplementedError naming the ROADMAP.md item that will add them.
+serial walk.
+
+Multi-host: each host runs the compress with ``--n-hosts N --host-id h``
+(its share of the blocks into ``out.host<h>.*``), then one host runs it
+with ``--merge-hosts`` (the 1-host triplet); ``python -m
+scalce_tpu_torch.parallel.multihost`` does all three over
+``torch.distributed``.  ``--profile DIR`` writes a ``torch.profiler``
+trace of the run into DIR (``timing.profile``).
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import os
 import sys
 from typing import List, Optional
 
+from scalce_tpu_torch import timing
 from scalce_tpu_torch.cli_args import build_parser as _reference_parser
-from scalce_tpu_torch.cli_args import config_from_args
+from scalce_tpu_torch.cli_args import config_from_args as _reference_config
+from scalce_tpu_torch.config import Config, resolve_read_len
 from scalce_tpu_torch.io.backend import DEFAULT_BACKEND
 
 
-def build_parser():
+class _Default(str):
+    """A parser default that :func:`config_from_args` tells apart from
+    the same word on the command line (argparse keeps the object)."""
+
+
+#: ``--core-placement`` when the command line does not give it: the
+#: device for short reads, the reference's AUTO for long reads
+BARE_CORE_PLACEMENT = _Default("device")
+
+
+def _set_help(parser: argparse.ArgumentParser, dest: str, text: str):
+    for action in parser._actions:
+        if action.dest == dest:
+            action.help = text
+
+
+def build_parser() -> argparse.ArgumentParser:
     p = _reference_parser()
     p.prog = "scalce_tpu_torch"
     p.description = "PyTorch + CUDA port of scalce_tpu"
@@ -54,28 +86,68 @@ def build_parser():
     # delta_device None: when compressing, the device delta match beside
     # device cores (host cores, or AUTO, take the reference's host match);
     # when decompressing, the host delta walk (the flag names both)
-    p.set_defaults(core_placement="device", delta_device=None,
+    p.set_defaults(core_placement=BARE_CORE_PLACEMENT, delta_device=None,
                    backend=DEFAULT_BACKEND)
+    _set_help(p, "core_placement",
+              "where the core matcher and sort run: the device (default "
+              "for short reads), the host (native C), or AUTO (probe the "
+              "device link once and pick; the default for long reads, "
+              "which run on the host).  The same bytes either way")
+    _set_help(p, "profile",
+              "write a torch.profiler trace of the run (Chrome trace "
+              "JSON; host spans of every pipeline stage, and the card's "
+              "kernels and copies under --device cuda) into DIR")
     return p
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    """The Config of a parsed command line: the reference's, with the
+    port's placement defaults.  Without ``--core-placement``, a compress
+    puts the cores and the delta on the device when the input's resolved
+    width is a short read's; a long-read input keeps the reference's
+    defaults (AUTO cores, host delta), which long-read mode runs on the
+    host.  ``--delta-device`` unset means the device delta beside device
+    cores when compressing and the host walk when decompressing."""
+    args = argparse.Namespace(**vars(args))
+    compress = not args.decompress
+    bare = (args.core_placement is BARE_CORE_PLACEMENT and compress
+            and not args.merge_hosts)
+    if bare:
+        args.core_placement = "auto"
+    if args.delta_device is None:
+        args.delta_device = compress and args.core_placement == "device"
+    cfg = _reference_config(args)
+    if bare and all(p == "-" or os.path.exists(p) for p in cfg.inputs):
+        # (a missing input is the driver's FileNotFoundError)
+        cfg = resolve_read_len(cfg)
+        from scalce_tpu_torch.pipeline.encode import SHORT_READ_MAX
+        if cfg.max_read_len <= SHORT_READ_MAX:
+            cfg = dataclasses.replace(cfg, core_on_device=True,
+                                      delta_on_device=True)
+    return cfg
+
+
+def run(cfg: Config, device):
+    """Compress or decompress as ``cfg`` says on ``device``, under
+    ``torch.profiler`` when ``cfg.profile_dir`` is set; returns the
+    :class:`~scalce_tpu_torch.pipeline.driver.RunStats`."""
+    from scalce_tpu_torch.pipeline import driver
+    with timing.profile(cfg.profile_dir, device):
+        if cfg.mode == "compress":
+            return driver.compress(cfg, device)
+        return driver.decompress(cfg, device)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.merge_hosts:
-        raise NotImplementedError(
-            "--merge-hosts (multi-host, n_hosts > 1): ROADMAP.md Queue 1 "
-            "item 16")
-    if args.profile:
-        raise NotImplementedError("--profile: ROADMAP.md Queue 1 item 18")
-    if args.delta_device is None:
-        args.delta_device = (not args.decompress
-                             and args.core_placement == "device")
     cfg = config_from_args(args)
-    from scalce_tpu_torch.pipeline import driver
-    if cfg.mode == "compress":
-        stats = driver.compress(cfg, args.device)
-    else:
-        stats = driver.decompress(cfg, args.device)
+    if args.merge_hosts:
+        from scalce_tpu_torch.pipeline import driver
+        n = driver.merge_hosts(cfg)
+        print(f"[scalce_tpu_torch] merged {n} blocks from {cfg.n_hosts} "
+              "hosts", file=sys.stderr)
+        return 0
+    stats = run(cfg, args.device)
     if cfg.stats_json:
         print(stats.to_json())
     else:

@@ -18,8 +18,16 @@ Compress runs on these threads:
   blocks pending.  With ``-T 1`` or less the main thread assembles each
   block right after its dispatch: the same code, no pool.
 
-Under host core there is no upload thread and nothing is queued on a
-device: the workers run each block whole on the host.
+Under host core and for long reads there is no upload thread and
+nothing is queued on a device: the workers run each block whole on the
+host.
+
+Multi-host (``cfg.n_hosts`` > 1): every host parses the whole input and
+encodes the blocks it owns (``block_id % n_hosts == host_id``, chosen
+after the lossy preamble, so that every host samples the same reads and
+builds the same map) into its own triplet ``<output>.host<h>``, with no
+part splitting; :func:`merge_hosts` then interleaves the hosts' blocks
+into the 1-host triplet, byte for byte (``parallel/merge.py``).
 
 Decompress runs the container read on a prefetch thread, the payload
 parse and each group's finish and FASTQ render on a pool of ``-T``
@@ -51,6 +59,8 @@ from scalce_tpu_torch import container
 from scalce_tpu_torch.config import Config, resolve_read_len
 from scalce_tpu_torch.io import fastq
 from scalce_tpu_torch.models import lossy
+from scalce_tpu_torch.parallel.merge import (host_prefix,
+                                             merge_host_outputs, owns_block)
 from scalce_tpu_torch.parallel.mesh import ShardedEncoder
 from scalce_tpu_torch.pipeline.decode import DECODE_GROUP, BlockDecoder
 from scalce_tpu_torch.pipeline.encode import BlockEncoder, file_meta
@@ -161,17 +171,17 @@ def _first(item):
     return item[0] if isinstance(item, tuple) else item
 
 
-def _parsed(blocks: Iterator, done) -> Iterator:
-    """The parsed blocks (or pairs), timed as ``parse FASTQ``, without
-    the block ids in ``done`` (already in a resumed triplet).  Closes
-    ``blocks`` (the input) when it stops."""
+def _parsed(blocks: Iterator, keep: Callable[[int], bool]) -> Iterator:
+    """The parsed blocks (or pairs), timed as ``parse FASTQ``, whose
+    block id ``keep`` takes (this host's, and not yet in a resumed
+    triplet).  Closes ``blocks`` (the input) when it stops."""
     with contextlib.closing(blocks):
         while True:
             with stage("parse FASTQ"):
                 item = next(blocks, None)
             if item is None:
                 return
-            if _first(item).block_id not in done:
+            if keep(_first(item).block_id):
                 yield item
 
 
@@ -196,18 +206,37 @@ def _groups(items: Iterator, D: int) -> Iterator[List]:
         yield group
 
 
+def _host_output(cfg: Config):
+    """``(prefix, part_size)`` of this host's triplet: the output's, or
+    under multi-host the host's own intermediate, unsplit (the merge
+    splits the final triplet into parts)."""
+    if cfg.n_hosts > 1:
+        return host_prefix(cfg.output, cfg.host_id), 0
+    return cfg.output, cfg.part_size
+
+
+def merge_hosts(cfg: Config) -> int:
+    """After every host's compress: merge the hosts' triplets (both
+    mates' for ``-r``) into the final one, which equals the 1-host
+    run's; returns the number of blocks (summed over the mates)."""
+    mates = (1, 2) if cfg.paired else (None,)
+    return sum(merge_host_outputs(cfg.output, cfg.n_hosts,
+                                  part_size=cfg.part_size, mate=mate)
+               for mate in mates)
+
+
 def _open_writers(cfg: Config) -> List[container.TripletWriter]:
-    """The output triplet, or the ``_1``/``_2`` pair of them.  A resumed
-    pair whose mates hold different durable blocks (a crash between the
-    mates' writes) is cut back to the blocks both hold, so pairs stay
-    in sync."""
+    """This host's output triplet, or the ``_1``/``_2`` pair of them
+    (:func:`_host_output`).  A resumed pair whose mates hold different
+    durable blocks (a crash between the mates' writes) is cut back to
+    the blocks both hold, so pairs stay in sync."""
     meta = file_meta(cfg)
     mates = (1, 2) if cfg.paired else (None,)
+    prefix, part_size = _host_output(cfg)
 
     def open_all(**kw):
-        return [container.TripletWriter(cfg.output, meta,
-                                        part_size=cfg.part_size, mate=m,
-                                        resume=cfg.resume, **kw)
+        return [container.TripletWriter(prefix, meta, part_size=part_size,
+                                        mate=m, resume=cfg.resume, **kw)
                 for m in mates]
     writers = open_all()
     if cfg.resume and cfg.paired \
@@ -230,7 +259,7 @@ def _encoder(cfg: Config, device, qual_map):
     nothing crosses to a device), ``dispatch(group, pre)`` on the main
     thread, ``assemble(group, dispatched)`` gives one output per block
     (a pair of them for ``-r``) on any thread; ``placement`` is
-    ``"host"`` or ``"device"`` (the cores')."""
+    ``"host"`` or ``"device"`` (the cores'; long reads: ``"host"``)."""
     if cfg.data_parallel:
         senc = ShardedEncoder(cfg, device, qual_map=qual_map)
         if cfg.paired:
@@ -242,7 +271,7 @@ def _encoder(cfg: Config, device, qual_map):
         return (senc.mesh, senc.D, senc.upload_group, senc.dispatch,
                 senc.assemble, "device")
     enc = BlockEncoder(cfg, device, qual_map)
-    devices = [] if enc.host_core else [enc.device]
+    devices = [] if enc.on_host else [enc.device]
     if cfg.paired:
         upload = lambda g: (enc.upload(g[0][0]), enc.upload(g[0][1]))
         dispatch = lambda g, pre: enc.dispatch_pair(
@@ -252,7 +281,7 @@ def _encoder(cfg: Config, device, qual_map):
         upload = lambda g: enc.upload(g[0])
         dispatch = lambda g, pre: enc.dispatch(g[0], pre)
         assemble = lambda g, f: [enc.assemble(g[0], f)]
-    return (devices, 1, None if enc.host_core else upload, dispatch,
+    return (devices, 1, None if enc.on_host else upload, dispatch,
             assemble, enc.placement)
 
 
@@ -262,7 +291,9 @@ def compress(cfg: Config, device) -> RunStats:
     on ``cfg.threads`` assembly workers; with ``cfg.data_parallel``, in
     groups of blocks over every device that ``device`` names
     (``parallel/mesh.py``); with ``cfg.lossy_pct``, through the lossy
-    quality map of the sampled reads."""
+    quality map of the sampled reads; with ``cfg.n_hosts`` > 1, this
+    host's share of the blocks into its own triplet (see the module
+    docstring)."""
     t0 = time.monotonic()
     for p in cfg.inputs:
         if p != "-" and not os.path.exists(p):
@@ -309,9 +340,11 @@ def compress(cfg: Config, device) -> RunStats:
                       f"{sum(eb.total_bytes for eb in ebs)} bytes",
                       file=sys.stderr)
 
-    groups = _groups(_parsed(blocks, writers[0].existing_blocks), D)
-    # host core: no upload stage, the parse's prefetch alone (the
-    # reference's host-core branch)
+    done = writers[0].existing_blocks
+    groups = _groups(_parsed(blocks, lambda bid: owns_block(
+        bid, cfg.host_id, cfg.n_hosts) and bid not in done), D)
+    # host core and long reads: no upload stage, the parse's prefetch
+    # alone (the reference's host-core branch)
     staged = _staged(groups, upload)
     try:
         with contextlib.closing(staged if upload is None else _prefetch(

@@ -1,5 +1,5 @@
 """Block encode pipeline (port of ``scalce_tpu/pipeline/encode.py``:
-every short-read placement and dictionary).
+every placement and dictionary, and long reads).
 
 Placements, as the reference's ``BlockEncoder`` picks them:
 
@@ -12,7 +12,12 @@ Placements, as the reference's ``BlockEncoder`` picks them:
 - host core (``core_on_device`` False, or AUTO on a link slower than
   200 MB/s, with host delta and the hash dictionary): the native core
   matcher, sort and delta match on the host, nothing on the device
-  (:meth:`BlockEncoder._assemble_hc`).
+  (:meth:`BlockEncoder._assemble_hc`);
+- long reads (``max_read_len`` above :data:`SHORT_READ_MAX`, whatever
+  the core placement: ``Config`` refuses device placements there):
+  minimizer order and the anchored predecessor delta in numpy on the
+  assembly workers (:meth:`BlockEncoder._assemble_long`, container
+  v6/v7), nothing on the device.
 
 The explicit dictionaries (``dict_mode`` lut / lcp) rank cores by a
 4^k table (``models/core_dict.py``) that each encoder builds once and
@@ -50,6 +55,8 @@ from scalce_tpu_torch.streams.seqs import _pack2bit_np
 from scalce_tpu_torch.timing import stage
 from scalce_tpu_torch.device import resolve_device
 from scalce_tpu_torch.ops import core_match, reorder
+from scalce_tpu_torch.ops.minimizer import (NO_KEY, minimizer_keys,
+                                            segment_minimizer_keys)
 from scalce_tpu_torch.ops.bitops import (MASK32, pack_bases_u32, popcount32,
                                          to_u32_bits, unpack_bases_u32)
 from scalce_tpu_torch.streams import qualities, qualities_host, seqs
@@ -57,20 +64,12 @@ from scalce_tpu_torch.transfer import Fetched, Link, Staged
 
 _DELTA_K = 4          # candidate predecessors per read (2-bit selector)
 _EVEN = 0x55555555
-
-
-def check_encode_config(cfg: Config) -> None:
-    """Raise NotImplementedError for a Config outside the ported part
-    (short reads, one host), naming the ROADMAP.md Queue 1 item that
-    will add it."""
-    if cfg.max_read_len > 32752:
-        raise NotImplementedError(
-            "long reads (max_read_len > 32752): ROADMAP.md Queue 1 item "
-            "11c")
-    if cfg.n_hosts > 1:
-        raise NotImplementedError(
-            "multi-host (n_hosts > 1, --merge-hosts), single-end or "
-            "paired: ROADMAP.md Queue 1 item 16")
+#: the widest short read (Config's rule): wider blocks are long reads
+SHORT_READ_MAX = 32752
+#: long reads: the target segment length of the v7 multi-anchor delta
+#: (each block's nseg is a power of two of its median read length / 512,
+#: in [4, 256], stored in the container)
+_LONG_SEG_LEN = 512
 
 
 def build_rank_lut(cfg: Config) -> Optional[np.ndarray]:
@@ -444,6 +443,8 @@ def host_delta_available() -> bool:
 #: what :meth:`BlockEncoder.dispatch` returns for a host-core block:
 #: nothing was queued on any device
 HOST_CORE = "hc"
+#: what it returns for a long-read block: nothing was queued either
+LONG = "long"
 
 
 @dataclasses.dataclass
@@ -467,8 +468,9 @@ class BlockEncoder:
     The placement is the reference's (``host_delta``, ``host_core``,
     ``placement``; see the module docstring): AUTO (``core_on_device``
     None) measures the link once per device (:func:`device_link_mbps`)
-    and keeps the cores on the host below 200 MB/s.  A host-core encoder
-    makes no :class:`Link` and queues nothing on the device.
+    and keeps the cores on the host below 200 MB/s.  A host-core or
+    long-read encoder (``long_mode``: no probe) makes no :class:`Link`
+    and queues nothing on the device.
 
     A block goes through :meth:`upload` (any thread: the driver runs it
     one block ahead), :meth:`dispatch` (the thread that owns the
@@ -477,7 +479,6 @@ class BlockEncoder:
     then the payload bytes on the host)."""
 
     def __init__(self, cfg: Config, device, qual_map=None):
-        check_encode_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.qual_map_np = None if qual_map is None else np.asarray(
@@ -489,17 +490,25 @@ class BlockEncoder:
                            and host_delta_available())
         eligible = (self.host_delta and cfg.dict_mode == "hash"
                     and not cfg.data_parallel and host_core_available())
-        if cfg.core_on_device is None:
+        #: long reads: the host numpy path (Config refuses device
+        #: placements there), and no link probe
+        self.long_mode = cfg.max_read_len > SHORT_READ_MAX
+        if self.long_mode:
+            want_host = False
+        elif cfg.core_on_device is None:
             want_host = (eligible and device_link_mbps(self.device)
                          < _LINK_AUTO_THRESHOLD_MBPS)
         else:
             want_host = not cfg.core_on_device
         self.host_core = want_host and eligible
-        self.placement = "host" if self.host_core else "device"
+        #: nothing of the encoder touches the device
+        self.on_host = self.host_core or self.long_mode
+        self.placement = "host" if self.on_host else "device"
         self.link = self.qual_map = self.rank_lut = None
-        #: the explicit dictionary's ranks on the host (None: hash)
-        self.rank_lut_np = build_rank_lut(cfg)
-        if not self.host_core:
+        #: the explicit dictionary's ranks on the host (None: hash, or
+        #: long reads, which rank no cores)
+        self.rank_lut_np = None if self.long_mode else build_rank_lut(cfg)
+        if not self.on_host:
             self.link = Link(self.device)
             self.qual_map = device_qual_map(qual_map, self.device)
             self.rank_lut = upload_rank_lut(self.rank_lut_np, self.link)
@@ -507,9 +516,9 @@ class BlockEncoder:
     def upload(self, block: ReadBlock) -> Optional[Staged]:
         """H2D through page-locked staging: host-packed 2-bit sequences,
         lengths, exception positions and, when they are device-placed,
-        qualities; nothing for host core.  The block's arrays are free
-        again on return."""
-        if self.host_core:
+        qualities; nothing for host core or long reads.  The block's
+        arrays are free again on return."""
+        if self.on_host:
             return None
         with stage("upload"):
             packed = _pack2bit_np(block.seq).reshape(block.seq.shape[0], -1)
@@ -575,7 +584,10 @@ class BlockEncoder:
         """Every kernel of one block and its downloads, queued:
         :meth:`encode_device`, then :meth:`download`; under host delta,
         stage A and the packed buffer's download (marked ``"hd"``);
-        under host core nothing (:data:`HOST_CORE`)."""
+        under host core nothing (:data:`HOST_CORE`), for long reads
+        nothing (:data:`LONG`)."""
+        if self.long_mode:
+            return LONG
         if self.host_core:
             return HOST_CORE
         if self.host_delta:
@@ -591,6 +603,8 @@ class BlockEncoder:
         """:meth:`dispatch` of a pair: both mates' downloads (host delta:
         mate 2's buffer marked ``"hd2"``, its core ids in place of the
         permutation)."""
+        if self.long_mode:
+            return [LONG, LONG]
         if self.host_core:
             return [HOST_CORE, HOST_CORE]
         if self.host_delta:
@@ -623,6 +637,12 @@ class BlockEncoder:
     def assemble_pair(self, b1: ReadBlock, b2: ReadBlock, fetched: Sequence
                       ) -> Tuple[EncodedBlock, EncodedBlock]:
         f1, f2 = fetched
+        if f1 is LONG:
+            # mate 1's minimizer order; mate 2 follows it (anchoring on
+            # its own minimizers)
+            order1 = self._long_order(b1)
+            return (self._assemble_long(b1, order_n=order1),
+                    self._assemble_long(b2, order_n=order1))
         if f1 is HOST_CORE:
             # mate 1's cores and sort; mate 2 follows its permutation
             n = b1.n_reads
@@ -657,8 +677,11 @@ class BlockEncoder:
         the host codec encodes the block's qualities through the sort
         permutation and the lossy map (the reference's ``_assemble``).
         Host delta: the native match off the downloaded buffer; host
-        core: the whole block on the host.  Reads nothing of the
+        core: the whole block on the host; long reads: the minimizer
+        order and anchored delta on the host.  Reads nothing of the
         device."""
+        if fetched is LONG:
+            return self._assemble_long(block)
         if fetched is HOST_CORE:
             return self._assemble_hc(block)
         cfg = self.cfg
@@ -747,6 +770,107 @@ class BlockEncoder:
         delta_np = {
             "mask_bits": mask_bits, "shifts": shifts, "pred_k": pred_k,
             "rc_bits": np.packbits(rc_full, bitorder="little"),
+            "lits": lits, "n_lits": len(lits),
+        }
+        return self._assemble(block, perm_np, len_s, delta_np)
+
+    def _long_order(self, block: ReadBlock, h=None, mp=None) -> np.ndarray:
+        """Long reads' order (the reference's): by (minimizer hash,
+        -position), ties stable; the identity when fewer than two reads
+        carry a key."""
+        n = block.n_reads
+        if h is None:
+            h, mp = minimizer_keys(block.seq[:n],
+                                   block.lengths[:n].astype(np.int64))
+        if n >= 2 and int((h != NO_KEY).sum()) >= 2:
+            return np.lexsort((-mp, h)).astype(np.int64)
+        return np.arange(n, dtype=np.int64)
+
+    def _assemble_long(self, block: ReadBlock,
+                       order_n: Optional[np.ndarray] = None
+                       ) -> EncodedBlock:
+        """Long-read assembly (the reference's, container v7): reads
+        sorted by their global minimizer, so that overlapping reads are
+        neighbours; each read's ``nseg`` equal segments copy from the
+        predecessor at the shift of a segment minimizer the two share
+        (else the global minimizers' shift), and a segment matching
+        under 50% of its cells falls back to literals with shift 0.
+        ``order_n``: mate 1's order (a pair's mate 2 follows it).  The
+        ``[n, L]`` int64 temporaries keep the reference's formulation:
+        the bytes depend on it."""
+        B, L = block.seq.shape
+        n = block.n_reads
+        with stage("long order"):
+            len_n0 = block.lengths[:n].astype(np.int64)
+            med = int(np.median(len_n0)) if n else 0
+            nseg = 1 << max(2, min(8, (med // _LONG_SEG_LEN).bit_length()))
+            h, mp = minimizer_keys(block.seq[:n], len_n0)
+            if order_n is None:
+                order_n = self._long_order(block, h, mp)
+        with stage("long delta"):
+            codes_s = block.seq[:n][order_n]
+            len_n = len_n0[order_n]
+            h_s = h[order_n]
+            mp_s = mp[order_n]
+            match = np.zeros((n, L), bool)
+            col = np.arange(L, dtype=np.int64)[None, :]
+            seg_shift = np.zeros((n, nseg), np.int64)
+            if n >= 2:
+                same = np.zeros(n, bool)
+                same[1:] = (h_s[1:] == h_s[:-1]) & (h_s[1:] != NO_KEY)
+                prev_mp = np.zeros(n, np.int64)
+                prev_mp[1:] = mp_s[:-1]
+                prev_len = np.zeros(n, np.int64)
+                prev_len[1:] = len_n[:-1]
+                gshift = np.where(same, prev_mp - mp_s, 0)
+                sh_cur, sp_cur = segment_minimizer_keys(codes_s, len_n, nseg)
+                sh_prev = np.roll(sh_cur, 1, axis=0)
+                sp_prev = np.roll(sp_cur, 1, axis=0)
+                seg_shift[:] = gshift[:, None]
+                # first match wins, over rows at once, one segment of the
+                # read at a time
+                rows_i = np.arange(n)
+                for a in range(nseg):
+                    eq_a = (sh_cur[:, a:a + 1] == sh_prev) \
+                        & (sh_cur[:, a:a + 1] != NO_KEY)   # [n, nseg]
+                    hit = eq_a.any(axis=1) & same
+                    b_idx = eq_a.argmax(axis=1)            # first True
+                    matched = sp_prev[rows_i, b_idx] - sp_cur[:, a]
+                    seg_shift[:, a] = np.where(hit, matched,
+                                               seg_shift[:, a])
+                seg_shift = np.where(same[:, None], seg_shift, 0)
+                # the decoder's column -> segment map
+                # (seqs._cell_shifts)
+                seg_of = np.minimum((col * nseg)
+                                    // np.maximum(len_n[:, None], 1),
+                                    nseg - 1)
+                cell_shift = np.take_along_axis(seg_shift, seg_of, axis=1)
+                pidx = col + cell_shift
+                inb = (pidx >= 0) & (pidx < prev_len[:, None])
+                prev_rows = np.roll(codes_s, 1, axis=0)
+                aligned = np.take_along_axis(prev_rows,
+                                             np.clip(pidx, 0, L - 1), axis=1)
+                valid = col < len_n[:, None]
+                match = (same[:, None] & inb & (aligned == codes_s) & valid)
+                # per segment: under a 50% match rate (random 2-bit codes
+                # match 25%) the mask costs more than the literals saved
+                for s in range(nseg):
+                    in_seg = seg_of == s
+                    seg_cells = (in_seg & valid).sum(axis=1)
+                    seg_match = (match & in_seg).sum(axis=1)
+                    kill = seg_match * 2 < seg_cells
+                    match &= ~(kill[:, None] & in_seg)
+                    seg_shift[kill, s] = 0
+            valid = col < len_n[:, None]
+            lits = codes_s[(~match) & valid]
+        perm_np = np.concatenate([order_n, np.arange(n, B, dtype=np.int64)])
+        len_s = np.zeros(B, np.int32)
+        len_s[:n] = len_n
+        delta_np = {
+            "mask_bits": np.packbits(match, axis=1, bitorder="little"),
+            "shifts": seg_shift.astype(np.int32),     # v7: [n, nseg]
+            "pred_k": np.zeros(n, np.uint8),
+            "rc_bits": np.zeros((B + 7) // 8, np.uint8),
             "lits": lits, "n_lits": len(lits),
         }
         return self._assemble(block, perm_np, len_s, delta_np)

@@ -495,9 +495,12 @@ def _try_side_rans(arrays: Dict[str, np.ndarray], prefix: str,
 def payload(delta: Dict[str, np.ndarray], lengths: np.ndarray, n_reads: int,
             exc_pos: np.ndarray, exc_byte: np.ndarray,
             perm: np.ndarray, level: int = 6, backend: str = "gz") -> bytes:
-    """Short-read delta payload of one block (i16 shifts); the literals
-    are the device placement's ``lit_packed`` words or the host match's
-    ``lits`` bytes (the same bytes out either way)."""
+    """Delta payload of one block; the literals are the device
+    placement's ``lit_packed`` words or the host match's ``lits`` bytes
+    (the same bytes out either way).  Short reads carry one i16 shift per
+    read (the ``shv`` planes); long reads (container v6/v7) carry i32
+    shifts, ``[n, nseg]`` of them under v7's multi-anchor delta, as four
+    zig-zag byte planes (``shv4``)."""
     n_lits = int(delta["n_lits"])
     mb = np.ascontiguousarray(delta["mask_bits"][:n_reads])
     arrays = {
@@ -533,11 +536,26 @@ def payload(delta: Dict[str, np.ndarray], lengths: np.ndarray, n_reads: int,
             padded = np.zeros(((n_lits + 15) // 16) * 16, np.uint8)
             padded[:n_lits] = lits[:n_lits]
             arrays["lit_packed"] = _pack2bit_np(padded)
-    zz = _zigzag16(np.ascontiguousarray(delta["shifts"][:n_reads]))
-    sh_stream = np.concatenate([(zz & 0xFF).astype(np.uint8),
-                                (zz >> 8).astype(np.uint8)])
-    if not _try_side_rans(arrays, "shv", sh_stream, backend):
-        arrays["shv_planes"] = sh_stream
+    sh = np.ascontiguousarray(delta["shifts"][:n_reads])
+    if sh.ndim == 2:
+        # v7 multi-anchor: nseg shifts per read, one read-major stream
+        arrays["nseg"] = np.asarray([sh.shape[1]], np.int64)
+        sh = np.ascontiguousarray(sh.reshape(-1))
+    if sh.dtype.itemsize > 2:
+        # long reads: minimizer-anchored shifts exceed i16
+        zi = sh.astype(np.int64)
+        zz32 = (((zi << 1) ^ (zi >> 63)) & 0xFFFFFFFF).astype(np.uint32)
+        sh_stream = np.concatenate(
+            [((zz32 >> (8 * p)) & 0xFF).astype(np.uint8)
+             for p in range(4)])
+        if not _try_side_rans(arrays, "shv4", sh_stream, backend):
+            arrays["shv4_planes"] = sh_stream
+    else:
+        zz = _zigzag16(sh)
+        sh_stream = np.concatenate([(zz & 0xFF).astype(np.uint8),
+                                    (zz >> 8).astype(np.uint8)])
+        if not _try_side_rans(arrays, "shv", sh_stream, backend):
+            arrays["shv_planes"] = sh_stream
     pk = np.ascontiguousarray(delta["pred_k"][:n_reads])
     if not _try_side_rans(arrays, "pkv", pk.astype(np.uint8, copy=False),
                           backend):
@@ -575,8 +593,7 @@ def parse_fields(blob: bytes, B: int, L: int, delta_device: bool = False):
     deep validation runs when ``delta_device`` or the native walk cannot
     (the reference's rule): the device reconstruction's gathers are
     unchecked, so a corrupt block raises ``ValueError`` here.  Reads
-    every short-read layout the reference writes; long-read (shv4)
-    blocks are ROADMAP.md Queue 1 item 11c."""
+    every layout the reference writes, long-read (v6/v7) blocks too."""
     a = container.unpack_arrays(blob)
     n = int(a["n_reads"][0])
     n_lits = int(a["n_lits"][0])
@@ -589,8 +606,26 @@ def parse_fields(blob: bytes, B: int, L: int, delta_device: bool = False):
             raise ValueError("corrupt .scalcer block: permutation short")
         a["perm"] = _bitunpack_u32(pk, n, k)
     if "shifts" not in a and ("shv4_mode" in a or "shv4_planes" in a):
-        raise NotImplementedError(
-            "long-read (v6/v7) blocks: ROADMAP.md Queue 1 item 11c")
+        # long reads: four zig-zag u32 planes; v7 stores nseg shifts per
+        # read ([n, nseg] after the reshape)
+        nseg = int(a["nseg"][0]) if "nseg" in a else 1
+        if not (1 <= nseg <= 256):
+            raise ValueError("corrupt .scalcer block: nseg out of range")
+        ns = n * nseg
+        if int(a["shv4_mode"][0]) if "shv4_mode" in a else 0:
+            sb = _decode_mask_rans(a, 4 * ns, prefix="shv4")
+        else:
+            sb = a["shv4_planes"]
+            if sb.ndim != 1 or sb.shape[0] < 4 * ns:
+                raise ValueError("corrupt .scalcer block: shifts planes "
+                                 "short")
+        zz = np.zeros(ns, np.uint32)
+        for p in range(4):
+            zz |= sb[p * ns:(p + 1) * ns].astype(np.uint32) << np.uint32(
+                8 * p)
+        zi = zz.astype(np.int64)
+        sh = (zi >> 1) ^ -(zi & 1)
+        a["shifts"] = sh.reshape(n, nseg) if nseg > 1 else sh
     if "shifts" not in a:
         if int(a["shv_mode"][0]) if "shv_mode" in a else 0:
             sb = _decode_mask_rans(a, 2 * n, prefix="shv")
@@ -652,6 +687,9 @@ def parse(blob: bytes, B: int, L: int, delta_device: bool = False,
     fields, lengths, n, *rest = parse_fields(blob, B, L, delta_device)
     codes = np.zeros((B, L), np.uint8)
     sh = fields["shifts"]
+    if delta_device and sh.ndim == 2:
+        raise ValueError("--delta-device does not support v7 long-read "
+                         "multi-anchor blocks (host walk only)")
     if delta_device:
         from scalce_tpu_torch.ops import delta_decode
         delta_decode.reconstruct_device(

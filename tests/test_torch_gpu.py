@@ -695,3 +695,90 @@ def test_card_host_core_allocates_nothing(cuda, tmp_path):
                      sorted(glob.glob(prefix + ".*.scalce[nrq]"))]
     assert outs["cpu"] == outs["cuda"]
     assert core_rank.core_rank_codes.launches == launches
+
+
+def test_card_long_reads_allocate_nothing(cuda, tmp_path):
+    """Long reads with a CUDA device: the CPU's triplet, no kernel, no
+    device memory; the keep-order decompress gives the input back."""
+    import glob
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.pipeline import driver
+    from scalce_tpu_torch.utils.longread import synth_long_fastq
+    src = os.path.join(tmp_path, "long.fastq")
+    data = synth_long_fastq(40, 20_000, 36_000, genome_len=100_000,
+                            ins=0.001, dele=0.001, seed=3)
+    with open(src, "wb") as f:
+        f.write(data)
+    kw = dict(block_reads=256, max_read_len=40_000, backend="gz", threads=4)
+    outs = {}
+    launches = core_rank.core_rank_codes.launches
+    for dev in ("cpu", "cuda"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        prefix = os.path.join(tmp_path, dev)
+        stats = driver.compress(Config(inputs=(src,), output=prefix, **kw),
+                                dev)
+        assert stats.placement == "host" and stats.device == "host"
+        driver.decompress(Config(mode="decompress",
+                                 inputs=(prefix + ".00.scalcen",),
+                                 output=prefix + "_d", keep_order=True), dev)
+        assert torch.cuda.max_memory_allocated() == before
+        with open(prefix + "_d.fastq", "rb") as f:
+            assert f.read() == data
+        outs[dev] = [open(p, "rb").read() for p in
+                     sorted(glob.glob(prefix + ".*.scalce[nrq]"))]
+    assert outs["cpu"] == outs["cuda"]
+    assert core_rank.core_rank_codes.launches == launches
+
+
+@pytest.mark.parametrize("data_parallel", [False, True])
+def test_card_hosts_merge_to_the_cpu_triplet(cuda, tmp_path, data_parallel):
+    """Two simulated hosts on the card, each on its own blocks (under
+    --data-parallel, groups of owned blocks), merged: the CPU's 1-host
+    triplet."""
+    import glob
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.pipeline import driver
+    paths, _ = _pipeline_inputs(tmp_path, False)
+    kw = dict(block_reads=256, max_read_len=128, backend="gz", threads=2,
+              qual_on_device=True, qual_context_order=1,
+              core_on_device=True, delta_on_device=True, inputs=paths)
+    one = os.path.join(tmp_path, "one")
+    driver.compress(Config(output=one, **kw), "cpu")
+    multi = os.path.join(tmp_path, "multi")
+    for h in range(2):
+        driver.compress(Config(output=multi, n_hosts=2, host_id=h,
+                               data_parallel=data_parallel, **kw), "cuda")
+    driver.merge_hosts(Config(output=multi, n_hosts=2, **kw))
+    got, want = ([open(p, "rb").read() for p in
+                  sorted(glob.glob(prefix + ".*.scalce[nrq]"))]
+                 for prefix in (multi, one))
+    assert len(got) == 3 and got == want
+
+
+def test_card_profile_names_kernels_and_stages(cuda, tmp_path):
+    """--profile on the card: the CLI's triplet equals the unprofiled
+    one, and the trace holds K1-K3's kernels and the stage spans."""
+    import glob
+    import json
+    from scalce_tpu_torch import cli, stage_profile
+    paths, _ = _pipeline_inputs(tmp_path, False)
+    argv = [*paths, "--block-reads", "256", "--max-read-len", "128",
+            "--qual-device", "--qual-order", "1", "-c", "gz", "-T", "2"]
+    for name, extra in (("plain", []),
+                        ("prof", ["--profile", str(tmp_path / "t")])):
+        assert cli.main(argv + ["-o", str(tmp_path / name)] + extra) == 0
+    got, want = ([open(p, "rb").read() for p in
+                  sorted(glob.glob(str(tmp_path / name) + ".*.scalce[nrq]"))]
+                 for name in ("prof", "plain"))
+    assert got == want
+    (trace,) = glob.glob(str(tmp_path / "t" / "*.trace.json"))
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kinds = {stage_profile._kind(e["name"]) for e in events
+             if e.get("cat") == "kernel"}
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"K1", "K2", "K3"} <= kinds
+    assert {"parse FASTQ", "upload", "stage A", "stage B", "pass B",
+            "download", "seqs.payload", "write"} <= spans

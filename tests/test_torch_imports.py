@@ -27,6 +27,7 @@ from scalce_tpu_torch.io import backend, fastq
 from scalce_tpu_torch.models import entropy
 from scalce_tpu_torch.streams import names
 from scalce_tpu_torch.utils import synth
+from scalce_tpu_torch.utils.longread import synth_long_fastq
 
 # xdist runs test files side by side on the CPU: one intra-op thread
 # per worker keeps torch's thread pools from oversubscribing the cores
@@ -72,13 +73,18 @@ def test_import_walk_sees_a_reference_import(tmp_path):
 
 def test_cli_round_trip_loads_no_reference_module(tmp_path):
     """A compress, a keep-order decompress, a -r pair, a -p file, host
-    cores, AUTO with the lcp dictionary and a --delta-device decompress
-    through the port's CLI in a fresh process: no module named
-    scalce_tpu or scalce_tpu.* is ever loaded."""
+    cores, AUTO with the lcp dictionary, a --delta-device decompress, a
+    long-read file and a two-host compress with --merge-hosts through
+    the port's CLI in a fresh process: no module named scalce_tpu or
+    scalce_tpu.* is ever loaded."""
     src = os.path.join(tmp_path, "in.fastq")
     with open(src, "wb") as f:
         f.write(synth.synth_fastq(500, 100, seed=8, var_len=True,
                                   n_rate=0.01))
+    long_src = os.path.join(tmp_path, "long.fastq")
+    with open(long_src, "wb") as f:
+        f.write(synth_long_fastq(8, 30_000, 36_000, genome_len=60_000,
+                                 ins=0.001, dele=0.001, seed=8))
     mates = [os.path.join(tmp_path, f"m{m}.fastq") for m in (1, 2)]
     for path, data in zip(mates, synth.synth_pair(400, 100, seed=9)):
         with open(path, "wb") as f:
@@ -105,6 +111,19 @@ def test_cli_round_trip_loads_no_reference_module(tmp_path):
         assert open(out + "/d.fastq", "rb").read() == \\
             open({src!r}, "rb").read() == \\
             open(out + "/hd.fastq", "rb").read()
+        main(base + ["-o", out + "/lr", {long_src!r}])
+        main(["--device", "cpu", "-d", "--keep-order", "-o", out + "/lrd",
+              out + "/lr.00.scalcen"])
+        assert open(out + "/lrd.fastq", "rb").read() == \\
+            open({long_src!r}, "rb").read()
+        for h in ("0", "1"):
+            main(base + ["-o", out + "/mh", "--n-hosts", "2", "--host-id",
+                         h, {src!r}])
+        main(base + ["-o", out + "/mh", "--n-hosts", "2", "--merge-hosts",
+                     {src!r}])
+        for s in "nrq":
+            assert open(out + "/mh.00.scalce" + s, "rb").read() == \\
+                open(out + "/o.00.scalce" + s, "rb").read()
         loaded = sorted(m for m in sys.modules
                         if m == "scalce_tpu" or m.startswith("scalce_tpu."))
         assert not loaded, loaded
@@ -254,6 +273,8 @@ COPIES = {"config.py": "config.py", "container.py": "container.py",
           "io/backend.py": "io/backend.py",
           "models/core_dict.py": "models/core_dict.py",
           "native/__init__.py": "native/__init__.py",
+          "ops/minimizer.py": "ops/minimizer.py",
+          "parallel/merge.py": "parallel/merge.py",
           "pipeline/threads.py": "pipeline/driver.py",
           "streams/names.py": "streams/names.py",
           "streams/qualities_host.py": "streams/qualities.py",
@@ -282,6 +303,22 @@ def test_async_writer_is_the_references_verbatim():
         return ast.dump(node)
     assert definition("scalce_tpu_torch/pipeline/threads.py") == \
         definition("scalce_tpu/pipeline/driver.py")
+
+
+def _body(path):
+    """The module's statements but its imports and docstring, as AST."""
+    tree = ast.parse(open(os.path.join(REPO, path)).read(), path)
+    return [ast.dump(n) for n in tree.body
+            if not isinstance(n, (ast.Import, ast.ImportFrom))
+            and not (isinstance(n, ast.Expr)
+                     and isinstance(n.value, ast.Constant))]
+
+
+@pytest.mark.parametrize("copy", ["ops/minimizer.py", "parallel/merge.py"])
+def test_verbatim_copy_matches_reference_statement_for_statement(copy):
+    """The long-read minimizer keys and the multi-host merge are the
+    reference's code: every statement but the imports."""
+    assert _body("scalce_tpu_torch/" + copy) == _body("scalce_tpu/" + copy)
 
 
 def test_native_library_is_the_ports_own():

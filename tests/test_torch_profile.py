@@ -1,13 +1,18 @@
 """scalce_tpu_torch's stage timing: off it records nothing; on it records
 every stage of the compress and decompress paths, and the profile script
-accounts for each run's wall clock."""
+accounts for each run's wall clock.  ``--profile DIR`` writes a
+torch.profiler trace that names the stages, on every thread that runs
+them, and changes no byte of the triplet."""
 
+import glob
 import json
+import os
 
 import pytest
 import torch
 
-from scalce_tpu_torch import stage_profile, timing
+from scalce_tpu_torch import cli, stage_profile, timing
+from scalce_tpu_torch.utils.synth import synth_fastq
 
 # xdist runs test files side by side on the CPU: one intra-op thread
 # per worker keeps torch's thread pools from oversubscribing the cores
@@ -119,3 +124,71 @@ def test_union_of_device_spans(spans, want):
 ])
 def test_device_event_kinds(name, kind):
     assert stage_profile._kind(name) == kind
+
+
+def _spans(trace_dir):
+    """{span name: thread ids} of the user spans of the one trace in
+    ``trace_dir``."""
+    (path,) = glob.glob(os.path.join(trace_dir, "*.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            spans.setdefault(e["name"], set()).add(e["tid"])
+    return spans
+
+
+def _triplet(prefix):
+    out = {}
+    for path in sorted(glob.glob(prefix + ".*.scalce[nrq]")):
+        with open(path, "rb") as f:
+            out[path[len(prefix):]] = f.read()
+    return out
+
+
+@pytest.mark.parametrize("flags,stages", [
+    ([], {"parse FASTQ", "upload", "stage A", "stage B", "download",
+          "quality encode (host)", "quality payload", "seqs.payload",
+          "names payload", "write"}),
+    (["--core-placement", "host"], {"parse FASTQ", "host core",
+                                    "host delta", "quality encode (host)",
+                                    "seqs.payload", "write"})])
+def test_profile_trace_names_the_stages(tmp_path, flags, stages):
+    """The CLI's --profile on the CPU: one Chrome trace per run whose
+    spans name the compress's stages (the assembly workers' too) and
+    the decompress's; the triplet equals the one without --profile."""
+    src = str(tmp_path / "in.fastq")
+    with open(src, "wb") as f:
+        f.write(synth_fastq(3000, 100, seed=3, var_len=True, n_rate=0.01))
+    base = ["--device", "cpu", "-c", "gz", "--block-reads", "1024",
+            "-T", "2", *flags, src]
+    prof = str(tmp_path / "prof")
+    assert cli.main(base + ["-o", str(tmp_path / "plain")]) == 0
+    assert cli.main(base + ["-o", str(tmp_path / "p"), "--profile",
+                            prof]) == 0
+    assert _triplet(str(tmp_path / "p")) == _triplet(str(tmp_path / "plain"))
+    spans = _spans(prof)
+    assert stages <= set(spans), stages - set(spans)
+    assert len(set().union(*spans.values())) >= 3    # main, parse, workers
+    dprof = str(tmp_path / "dprof")
+    assert cli.main(["--device", "cpu", "-d", "--keep-order", "-o",
+                     str(tmp_path / "d"), "--profile", dprof,
+                     str(tmp_path / "p.00.scalcen")]) == 0
+    assert {"seqs.parse", "qualities.parse", "_finish",
+            "render FASTQ", "write"} <= set(_spans(dprof))
+    with open(tmp_path / "d.fastq", "rb") as a, open(src, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_profile_off_writes_nothing(tmp_path):
+    with timing.profile(None, "cpu"):
+        with timing.stage("a"):
+            pass
+    assert not timing._profiling and os.listdir(tmp_path) == []
+    with pytest.raises(ValueError):
+        with timing.profile(str(tmp_path / "t"), "cpu"):
+            with timing.stage("b"):
+                raise ValueError
+    assert not timing._profiling and set(_spans(str(tmp_path / "t"))) \
+        == {"b"}
