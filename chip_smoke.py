@@ -5,7 +5,7 @@
 
 Phases (the first failure exits non-zero; no phase is caught):
   1. card: name and power limit; no CUDA device -> exit 1
-  2. build: the CUDA kernels (csrc/*.cu, nvcc, sm_90a)
+  2. build: the CUDA kernels (csrc/*.cu, nvcc, sm_90a: K1-K8)
   3. kernels: K1-K4 against their plain torch versions on one real
      262144-read block (B = 262144, L = 128, T = 2048, N = 16384): K1
      from the block's codes, exception mask and lengths; K2 (pass A)
@@ -21,16 +21,22 @@ Phases (the first failure exits non-zero; no phase is caught):
      that the data-parallel stage 1 leaves for the file's first 4 blocks
      ([4, 262144, 128] int64, 286,136 cells; K5: T = 2048, 65,536 lanes)
      and for its first block alone, and K6's flat entry at the lossy
-     all-reduce's shapes (one block's symbols into 95 cells); exact
-     equality; per kernel, timed with CUDA events: the wrapper, the
+     all-reduce's shapes (one block's symbols into 95 cells); K7 (the
+     sequence delta) on that block's stage-A outputs and on phase 5's
+     ragged block with N bases; K8 (the compaction) on K3's outputs for
+     that block at order 1 and on K5's for the group of 4; exact
+     equality (K7's literal words and K8's words after the download's
+     narrowing); per kernel, timed with CUDA events: the wrapper, the
      launch alone (each kernel's ``prepare``), the plain version, and
      the one PyTorch call that computes the same function where there is
      one (the flat K6: ``torch.bincount``); and its bound from this run's
      bytes and operations, which the launch alone must not beat
   4. main path: compress a 1,148,576-read synthetic FASTQ on the card
      (single-end, lossless, every stage on the device, order 1, gz),
-     decompress it in keep-order, require the input bytes back and K1-K4
-     launched (K4: decode_quals)
+     decompress it in keep-order, require the input bytes back and K1-K4,
+     K7 and K8 launched (K4: decode_quals; K7 once per block, K8 once per
+     block on K3's path and once per group on K5's, in every phase that
+     codes sequences or qualities on the card)
   5. card vs CPU: a ragged file with N bases compressed on the card and
      with the plain torch versions on the CPU must give identical
      triplets (tests pin the CPU path to scalce_tpu byte for byte)
@@ -38,12 +44,12 @@ Phases (the first failure exits non-zero; no phase is caught):
      in groups of 4 blocks (4 per card on one card: one group and a
      tail) must give the single-device encoder's payloads, and the
      --data-parallel driver (one block per card) phase 4's triplet; K1,
-     K2 (grids only), K5 and K6 must have run in each, counted apart;
-     then the driver's run once more under torch.profiler: the device
-     busy time
+     K2 (grids only), K5, K6, K7 and K8 must have run in each, counted
+     apart; then the driver's run once more under torch.profiler: the
+     device busy time, split into K1-K8, the eager torch ops and copies
   7. paired-end: a 2 x 1,148,576-read pair compressed on the card (-r)
-     and decompressed in keep-order must give both files back, with K1-K4
-     launched; the --data-parallel pair (K1, K2, K5 and K6 launched)
+     and decompressed in keep-order must give both files back, with K1-K4,
+     K7 and K8 launched; the --data-parallel pair (K1, K2, K5-K8 launched)
      must write the same _1/_2 triplets
   8. lossy (-p 30) on the main file: keep-order decompress keeps names
      and sequences and gives every quality through the map that
@@ -64,7 +70,8 @@ Phases (the first failure exits non-zero; no phase is caught):
      host decompress, ``--data-parallel``, the pair and ``-p 30``; every
      triplet equals its ``-T 1`` triplet, each decompress gives the input
      back, every kernel launches as often as at ``-T 1``; walls and the
-     peak device memory beside ``-T 1``'s, the main file at Config()'s
+     peak device memory beside ``-T 1``'s and the parent's (PERF.md §5),
+     the main file at Config()'s
      default threads (cores + 2), and the ``-T 4`` compress's device busy
      time with its copies split into pageable and page-locked
  11. placements and dictionaries: the bare command's Config under host
@@ -88,21 +95,24 @@ Phases (the first failure exits non-zero; no phase is caught):
      indel-bearing long reads); two ranks of
      ``scalce_tpu_torch.parallel.multihost`` on localhost sharing the
      card, at phase 4's Config and at phase 8's ``-p 30``, must merge
-     to phase 4's and phase 8's triplets with K1-K3 launched as often
-     across the ranks; phase 4's compress and keep-order decompress
-     through the CLI under ``--profile`` must give phase 4's triplet and
-     the input back, with traces naming the stages and K1-K4
+     to phase 4's and phase 8's triplets with K1-K3, K7 and K8 launched
+     as often across the ranks; phase 4's compress and keep-order
+     decompress through the CLI under ``--profile`` must give phase 4's
+     triplet and the input back, with traces naming the stages and K1-K4,
+     K7 and K8
 
 The line before the last is the card's name and power limit; the one
 before that is a JSON object with one entry per kernel (``launches``:
-phase 4's count for K1-K4, the phase-6 --data-parallel driver's for K5
-and K6, and their ``sharded_launches`` the ShardedEncoder's; K1's
+phase 4's count for K1-K4, K7 and K8, the phase-6 --data-parallel
+driver's for K5 and K6, and their ``sharded_launches`` the
+ShardedEncoder's (K7's and K8's ``dp_launches`` the driver's); K1's
 ``lut`` case phase 11's main-file lut compress's; phases 7 to 9 check
 their own counts; ``launches_T4`` phase 10's counts of the
 same runs at ``-T 4``; ``ms`` the wrapper, ``kernel_ms`` the
 launch alone; K1's ``lut``, K2's ``lut`` and ``grids_only``, K4's
 ``d1``, K5's and
-K6's ``one_block`` and K6's ``flat`` the other cases above); the last
+K6's ``one_block``, K6's ``flat``, K7's ``ragged`` and K8's ``group`` the
+other cases above); the last
 line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
 of scalce_tpu.
@@ -128,6 +138,13 @@ SLICE = dict(block_reads=1 << 18, max_read_len=128, qual_T_target=2048,
 MAIN_READS = 1_148_576
 RAGGED_READS = 393_216
 LOSSY_PCT = 30
+#: the main file's blocks
+MAIN_BLOCKS = -(-MAIN_READS // SLICE["block_reads"])
+#: phase 10's peak device memory, GiB at -T 1 and -T 4, before stage B's
+#: delta and pass B's compaction were kernels (commit bdc8925; PERF.md §5)
+PARENT_PEAK_GIB = {"main": (1.592, 1.688), "bare": (1.011, 1.028),
+                   "dp": (1.619, 1.668), "pair": (2.329, 2.425),
+                   "lossy": (1.640, 1.640)}
 
 
 def say(msg: str) -> None:
@@ -183,6 +200,15 @@ def counts(kernels: dict, names) -> dict:
     return {name: kernels[name][1].launches for name in names}
 
 
+def check_sequence_kernels(run: str, launches: dict, blocks: int) -> None:
+    """K7 must have run once per block (and mate) of ``run`` and K8 once
+    per K3 launch (a block) and per K5 launch (a group)."""
+    if launches["K7"] != blocks or \
+            launches["K8"] != launches["K3"] + launches["K5"]:
+        raise AssertionError(f"{run}: K7 must run once per block ({blocks}) "
+                             f"and K8 once per K3 or K5 launch: {launches}")
+
+
 def write_fastq(path: str, n_reads: int, **kw) -> bytes:
     from scalce_tpu_torch.utils.synth import synth_fastq
     data = synth_fastq(n_reads, 100, **kw)
@@ -203,11 +229,13 @@ INT_OPS_PER_S = 67e12 / 2
 #: and the reverse complement, or with a rank LUT the two lookups' address
 #: arithmetic and compares; K2: per cell of a read, the LUT, clamp,
 #: context and count; K3 and K4: per cell of a read, the context, table
-#: entry and state update; K5: per (lane, step); K6: per index).  Padding
-#: cells and windows past a read's end are not counted: the bound stays
-#: a bound.
+#: entry and state update; K5: per (lane, step); K6: per index; K7: per
+#: 16-column word of a row, its packing, four candidates' funnel shift,
+#: compare and popcount, the winner's mask and literal compaction; K8: per
+#: (step, lane), the emit test, slot and store).  Padding cells and
+#: windows past a read's end are not counted: the bound stays a bound.
 OPS_PER_ELEMENT = {"K1": 40, "K2": 10, "K3": 20, "K4": 25, "K5": 15, "K6": 4,
-                   "K1 lut": 20}
+                   "K1 lut": 20, "K7": 40, "K8": 4}
 
 
 def narrow_bytes(t: torch.Tensor) -> int:
@@ -288,16 +316,39 @@ def as_tuple(x):
                  if t is not None)
 
 
-def check_kernels(blocks, dev, kernels) -> dict:
+def delta_outputs(fn):
+    """K7's function ``fn`` with its products as a tuple, the literal
+    words narrowed as the download narrows them (the kernel writes them
+    so)."""
+    from scalce_tpu_torch.ops.bitops import to_u32_bits
+
+    def run(*args):
+        d = fn(*args)
+        return (d["mask_bits"], d["shifts"], d["pred_k"],
+                to_u32_bits(d["lit_packed"]), d["n_lits"])
+    return run
+
+
+def compact_plain_narrowed(words, emits):
+    """K8's plain version with its words narrowed to int16 as the
+    download narrows them (the kernel writes them so)."""
+    from scalce_tpu_torch.ops import compact
+    packed, counts = compact.compact_emissions_plain(words, emits)
+    return packed.to(torch.int16), counts
+
+
+def check_kernels(blocks, ragged, dev, kernels) -> dict:
     """Phase 3: each kernel against its plain version at the slice's
-    shapes, timed: K1-K4 from one real block (K4 in the main path's
-    groups of 4 blocks and of 1), K5 and K6 from a data-parallel group of
-    ``blocks`` and from one block; K2-K4 also at orders 2 and 3."""
+    shapes, timed: K1-K4 and K7 from one real block (K4 in the main
+    path's groups of 4 blocks and of 1), K7 also from the block
+    ``ragged``, K8 from K3's outputs, K5, K6 and K8 from a data-parallel
+    group of ``blocks`` and from one block; K2-K4 also at orders 2 and
+    3."""
     from scalce_tpu_torch.config import Config
     from scalce_tpu_torch.models import entropy, lossy
-    from scalce_tpu_torch.ops import (core_rank, histogram, rans,
-                                      rans_decode, rans_encode,
-                                      rans_encode_flat)
+    from scalce_tpu_torch.ops import (compact, core_rank, delta_seq,
+                                      histogram, rans, rans_decode,
+                                      rans_encode, rans_encode_flat)
     from scalce_tpu_torch.ops.bitops import unpack_bases_u32
     from scalce_tpu_torch.parallel import mesh
     from scalce_tpu_torch.pipeline import encode
@@ -346,10 +397,24 @@ def check_kernels(blocks, dev, kernels) -> dict:
                       ops_key="K1 lut", extra_bytes=sectors * 32))
     del valid
 
-    _, _, qual_s, len_s, *_ = encode._device_stage_a(
+    _, codes_s, qual_s, len_s, ck_s, cp_s, _ = encode._device_stage_a(
         pre["seq"], pre["qual"], pre["len"], block.n_reads, pre["exc"], k,
         seed)
     n_valid = int(len_s.sum())
+    # K7 on this block's stage-A outputs and on the ragged block's (reads
+    # of 50-100 bases, N bases); its bound counts these inputs and the
+    # products it writes
+    rag = enc.upload(ragged).wait()
+    _, rcodes, _, rlen, rck, rcp, _ = encode._device_stage_a(
+        rag["seq"], rag["qual"], rag["len"], ragged.n_reads, rag["exc"], k,
+        seed)
+    for tag, a in (("", (codes_s, len_s, ck_s, cp_s, block.n_reads)),
+                   (" ragged", (rcodes, rlen, rck, rcp, ragged.n_reads))):
+        cases.append(Case("K7" + tag, delta_outputs(delta_seq.delta_seq),
+                          delta_outputs(delta_seq.delta_seq_plain), a,
+                          delta_seq.prepare, 20, 3, a[:4],
+                          a[0].numel() // 16))
+    del rag, rcodes, rlen, rck, rcp
     T = qualities.pick_T(B, L, cfg.qual_T_target)
     # the -p 30 map that models/lossy.py builds from this block's reads
     qmap = encode.device_qual_map(lossy.build_quant_map(
@@ -380,6 +445,10 @@ def check_kernels(blocks, dev, kernels) -> dict:
         "K3", rans_encode.encode_scan, rans_encode.encode_scan_plain,
         (sym, ctx, freq, cum, T, 1), rans_encode.prepare, 20, 2,
         (sym, ctx, freq, cum), n_valid))
+    _, words, emits = rans_encode.encode_scan(sym, ctx, freq, cum, T, 1)
+    cases.append(Case("K8", compact.compact_emissions, compact_plain_narrowed,
+                      (words, emits), compact.prepare, 20, 3, (words, emits),
+                      words.numel()))
 
     encoded = {}
 
@@ -427,6 +496,13 @@ def check_kernels(blocks, dev, kernels) -> dict:
             rans_encode_flat.encode_grids_plain, (gsym, gctx, gfreq, gcum, T),
             rans_encode_flat.prepare, 10, 1, (gsym, gctx, gfreq, gcum),
             gsym.numel()))
+        if not tag:
+            _, gwords, gemits = rans_encode_flat.encode_grids(
+                gsym, gctx, gfreq, gcum, T)
+            cases.append(Case(
+                "K8 group", compact.compact_emissions, compact_plain_narrowed,
+                (gwords, gemits), compact.prepare, 10, 1, (gwords, gemits),
+                gwords.numel()))
         say(f"group of {len(group)} block(s): K5 and K6 on grids "
             f"{list(gsym.shape)}, {len(group) * C * qualities.N_SYMS} "
             f"cells; K5 T = {T}, {gsym.numel() // T} lanes")
@@ -552,6 +628,7 @@ def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
         if not all(launches[n] for n in ("K1", "K2", "K5", "K6")):
             raise AssertionError(f"K1, K2, K5 or K6 never ran in the "
                                  f"data-parallel {run} run: {launches}")
+        check_sequence_kernels(f"data-parallel {run}", launches, n_blocks)
     mb = os.path.getsize(src) / 1e6
     say(f"data-parallel on {[str(d) for d in senc.mesh]}: the payloads of "
         f"{n_blocks} blocks (groups of {senc.D}) equal the single-device "
@@ -570,12 +647,23 @@ def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
         say("--data-parallel compress under torch.profiler: no device "
             "events recorded (device busy not measured)")
     else:
-        kinds = ", ".join(f"{name} {sec:.4f} s" for name, sec
-                          in sorted(prof["by_kind_s"].items()))
         say(f"--data-parallel compress under torch.profiler: wall "
             f"{prof['wall_s']:.3f} s, device busy {prof['busy_s']:.4f} s "
-            f"({kinds}) | {smi}")
+            f"({busy_split(prof)}) | {smi}")
     return sharded, driver
+
+
+def busy_split(prof: dict) -> str:
+    """``stage_profile.device_busy``'s device seconds: the port's kernels
+    K1-K8 together, the eager torch ops and the copies, then each kind."""
+    kinds = prof["by_kind_s"]
+    ours = sum(sec for name, sec in kinds.items() if name[:1] == "K")
+    copies = sum(sec for name, sec in kinds.items() if "copies" in name)
+    each = ", ".join(f"{name} {sec:.4f} s" for name, sec in sorted(
+        kinds.items()))
+    return (f"K1-K8 {ours:.4f} s, eager torch ops "
+            f"{kinds.get('torch kernels', 0.0):.4f} s, copies {copies:.4f} s;"
+            f" {each}")
 
 
 def check_cli_defaults(src: str, data: bytes, tmp: str, kernels: dict,
@@ -609,6 +697,7 @@ def check_cli_defaults(src: str, data: bytes, tmp: str, kernels: dict,
         raise AssertionError(f"the bare command must run K1 and code the "
                              f"qualities on the host: compress {launches}, "
                              f"decompress {decode}")
+    check_sequence_kernels("bare command", launches, MAIN_BLOCKS)
     t0 = time.monotonic()
     cli.main([src, "-o", os.path.join(tmp, "bare_cpu"), "--device", "cpu",
               "-T", "1"])
@@ -657,15 +746,16 @@ def check_paired(tmp: str, kernels: dict, smi: str, t1: dict) -> None:
         output=os.path.join(tmp, "pair_out"), keep_order=True,
         qual_on_device=True, threads=1), "cuda")
     t_d = time.monotonic() - t0
-    launches = counts(kernels, ("K1", "K2", "K3", "K4"))
+    launches = counts(kernels, kernels)
     for m, data in zip((1, 2), mates):
         with open(os.path.join(tmp, f"pair_out_{m}.fastq"), "rb") as f:
             if f.read() != data:
                 raise AssertionError(f"paired keep-order decompress != "
                                      f"mate {m}'s input")
-    if not all(launches.values()):
+    if not all(launches[n] for n in ("K1", "K2", "K3", "K4")):
         raise AssertionError(f"a kernel never ran on the paired path: "
                              f"{launches}")
+    check_sequence_kernels("paired", launches, 2 * MAIN_BLOCKS)
     trip = triplet(os.path.join(tmp, "pair"))
     comp = sum(len(b) for _, b in trip)
     mb = sum(len(d) for d in mates) / 1e6
@@ -680,13 +770,14 @@ def check_paired(tmp: str, kernels: dict, smi: str, t1: dict) -> None:
                                      data_parallel=True, **cfg), "cuda")
     torch.cuda.synchronize()
     t_dp = time.monotonic() - t0
-    dp = counts(kernels, ("K1", "K2", "K5", "K6"))
+    dp = counts(kernels, kernels)
     if triplet(os.path.join(tmp, "pair_dp")) != trip:
         raise AssertionError("paired --data-parallel triplets != "
                              "single-device ones")
-    if not all(dp.values()):
+    if not all(dp[n] for n in ("K1", "K2", "K5", "K6")):
         raise AssertionError(f"K1, K2, K5 or K6 never ran on the paired "
                              f"data-parallel path: {dp}")
+    check_sequence_kernels("paired --data-parallel", dp, 2 * MAIN_BLOCKS)
     say(f"paired --data-parallel: _1/_2 triplets equal the single-device "
         f"ones; launches {dp}")
     say(f"paired compress {t_c:.3f} s = {mb / t_c:.2f} MB/s, decompress "
@@ -718,10 +809,11 @@ def check_lossy(src: str, data: bytes, lossless_bytes: int, tmp: str,
         output=os.path.join(tmp, "lossy_out"), keep_order=True,
         qual_on_device=True, threads=1), "cuda")
     t_d = time.monotonic() - t0
-    launches = counts(kernels, ("K1", "K2", "K3", "K4"))
-    if not all(launches.values()):
+    launches = counts(kernels, kernels)
+    if not all(launches[n] for n in ("K1", "K2", "K3", "K4")):
         raise AssertionError(f"a kernel never ran on the lossy path: "
                              f"{launches}")
+    check_sequence_kernels("lossy", launches, MAIN_BLOCKS)
 
     # the map the driver must have used: the reads of the first blocks
     # up to the sample size (Config.sample_size)
@@ -777,14 +869,15 @@ def check_lossy(src: str, data: bytes, lossless_bytes: int, tmp: str,
     reset(kernels)
     t_dp = compress_file(src, os.path.join(tmp, "lossy_dp"), "cuda",
                          lossy_pct=LOSSY_PCT, data_parallel=True)
-    dp = counts(kernels, ("K1", "K2", "K5", "K6"))
+    dp = counts(kernels, kernels)
     if triplet(os.path.join(tmp, "lossy_dp")) != triplet(
             os.path.join(tmp, "lossy")):
         raise AssertionError("lossy --data-parallel triplet != "
                              "single-device one")
-    if not all(dp.values()):
+    if not all(dp[n] for n in ("K1", "K2", "K5", "K6")):
         raise AssertionError(f"K1, K2, K5 or K6 never ran on the lossy "
                              f"data-parallel path: {dp}")
+    check_sequence_kernels("lossy --data-parallel", dp, MAIN_BLOCKS)
     say(f"lossy --data-parallel triplet equals the single-device one; "
         f"all-reduce over {len(cards)} card(s) equals the host histogram; "
         f"launches {dp}")
@@ -879,9 +972,11 @@ def check_pipelined(src: str, data: bytes, tmp: str, kernels: dict,
     for name in runs:
         peaks = " -> ".join(f"{r[name]['peak_bytes'] / 2**30:.3f}"
                             for r in (t1, t4))
+        before = " -> ".join(f"{g:.3f}" for g in PARENT_PEAK_GIB[name])
         say(f"{name} compress: -T 1 {t1[name]['wall_s']:.3f} s, -T 4 "
-            f"{t4[name]['wall_s']:.3f} s; peak device memory {peaks} GiB; "
-            f"equal triplets and launches {t4[name]['launches']} | {smi}")
+            f"{t4[name]['wall_s']:.3f} s; peak device memory {peaks} GiB "
+            f"(bdc8925, PERF.md §5: {before} GiB); equal triplets and "
+            f"launches {t4[name]['launches']} | {smi}")
         if name + " decompress" in t4:
             say(f"{name} keep-order decompress: -T 1 "
                 f"{t1[name + ' decompress']['wall_s']:.3f} s, -T 4 "
@@ -908,11 +1003,10 @@ def check_pipelined(src: str, data: bytes, tmp: str, kernels: dict,
         say("-T 4 compress under torch.profiler: no device events recorded "
             "(device busy not measured)")
     else:
-        kinds = ", ".join(f"{name} {sec:.4f} s" for name, sec
-                          in sorted(prof["by_kind_s"].items()))
         say(f"stage_profile.device_busy of the -T 4 compress: wall "
             f"{prof['wall_s']:.3f} s, device busy {prof['busy_s']:.4f} s "
-            f"({100 * prof['busy_s'] / prof['wall_s']:.1f}%; {kinds}) | {smi}")
+            f"({100 * prof['busy_s'] / prof['wall_s']:.1f}%; "
+            f"{busy_split(prof)}) | {smi}")
     return t4
 
 
@@ -1042,6 +1136,7 @@ def check_placements(src: str, data: bytes, rag: str, tmp: str,
     t_c = compress_file(src, os.path.join(tmp, "main_lut"), "cuda",
                         dict_mode="lut")
     lut_launches = counts(kernels, kernels)
+    check_sequence_kernels("main file under lut", lut_launches, MAIN_BLOCKS)
     scalce_tpu_torch.decompress(Config(
         mode="decompress", inputs=(os.path.join(tmp, "main_lut.00.scalcen"),),
         output=os.path.join(tmp, "main_lut_out"), keep_order=True,
@@ -1152,17 +1247,20 @@ print(json.dumps(res))
 """
 
 #: child of phase 12: one rank of ``parallel.multihost``, then its launch
-#: counts of K1-K4 as JSON
+#: counts of K1-K4, K7 and K8 as JSON
 RANK_CHILD = """
 import json, sys
-from scalce_tpu_torch.ops import core_rank, rans_decode, rans_encode
+from scalce_tpu_torch.ops import (compact, core_rank, delta_seq, rans_decode,
+                                  rans_encode)
 from scalce_tpu_torch.parallel import multihost
 from scalce_tpu_torch.streams import qualities
 multihost.main(sys.argv[1:])
 print(json.dumps({"K1": core_rank.core_rank_codes.launches,
                   "K2": qualities.sym_ctx_hist.launches,
                   "K3": rans_encode.encode_scan.launches,
-                  "K4": rans_decode.decode_quals.launches}))
+                  "K4": rans_decode.decode_quals.launches,
+                  "K7": delta_seq.delta_seq.launches,
+                  "K8": compact.compact_emissions.launches}))
 """
 
 
@@ -1205,8 +1303,8 @@ def check_two_ranks(src: str, tmp: str, name: str, flags, want_prefix: str,
                     want_launches: dict, smi: str) -> None:
     """Two ranks of ``parallel.multihost`` on localhost, sharing the card
     (``cuda:R % cards``): rank 0's merged triplet must be ``want_prefix``'s,
-    and K1-K3 must launch as often across the ranks as in that run (K4
-    decodes: none)."""
+    and K1-K3, K7 and K8 must launch as often across the ranks as in that
+    run (K4 decodes: none)."""
     out = os.path.join(tmp, name)
     port = free_port()
     t0 = time.monotonic()
@@ -1217,8 +1315,8 @@ def check_two_ranks(src: str, tmp: str, name: str, flags, want_prefix: str,
     wall = time.monotonic() - t0
     ranks = [json.loads(lines[-1]) for lines in outs]
     rank_s = [json.loads(lines[-2])["wall_s"] for lines in outs]
-    total = {k: sum(r[k] for r in ranks) for k in ("K1", "K2", "K3", "K4")}
-    want = {k: want_launches[k] for k in ("K1", "K2", "K3")}
+    total = {k: sum(r[k] for r in ranks) for k in ranks[0]}
+    want = {k: want_launches[k] for k in ("K1", "K2", "K3", "K7", "K8")}
     if triplet(out) != triplet(want_prefix):
         raise AssertionError(f"{name}: the two ranks' merged triplet != "
                              f"{os.path.basename(want_prefix)}'s")
@@ -1316,8 +1414,10 @@ def check_feature_surface(src: str, data: bytes, tmp: str, smi: str,
                                "seqs.payload", "write"},
                   "decompress": {"seqs.parse", "quality decode", "_finish",
                                  "render FASTQ", "write"}}
+    # K7 is two kernels per launch (counting, emitting)
     want_kinds = {"compress": {k: t1["main"]["launches"][k]
-                               for k in ("K1", "K2", "K3")},
+                               * (2 if k == "K7" else 1)
+                               for k in ("K1", "K2", "K3", "K7", "K8")},
                   "decompress": {"K4": t1["main decompress"]["launches"]
                                  ["K4"]}}
     for mode in walls:
@@ -1341,9 +1441,9 @@ def check_feature_surface(src: str, data: bytes, tmp: str, smi: str,
 
 def main() -> int:
     smi = card()                                              # phase 1
-    from scalce_tpu_torch.ops import (_cuda, core_rank, hist, histogram,
-                                      rans_decode, rans_encode,
-                                      rans_encode_flat)
+    from scalce_tpu_torch.ops import (_cuda, compact, core_rank, delta_seq,
+                                      hist, histogram, rans_decode,
+                                      rans_encode, rans_encode_flat)
     from scalce_tpu_torch.streams import qualities
     kind = torch.cuda.get_device_name(0)
     say(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1353,8 +1453,10 @@ def main() -> int:
                "K3": (rans_encode, rans_encode.encode_scan),
                "K4": (rans_decode, rans_decode.decode_quals),
                "K5": (rans_encode_flat, rans_encode_flat.encode_grids),
-               "K6": (histogram, histogram.grid_histogram)}
-    main_path = ("K1", "K2", "K3", "K4")
+               "K6": (histogram, histogram.grid_histogram),
+               "K7": (delta_seq, delta_seq.delta_seq),
+               "K8": (compact, compact.compact_emissions)}
+    main_path = ("K1", "K2", "K3", "K4", "K7", "K8")
 
     t0 = time.monotonic()                                       # phase 2
     _cuda.library()
@@ -1365,13 +1467,19 @@ def main() -> int:
         src = os.path.join(tmp, "main.fastq")
         data = write_fastq(src, MAIN_READS, seed=42, genome_len=1_000_000,
                            n_rate=0.001)
+        rag = os.path.join(tmp, "ragged.fastq")
+        write_fastq(rag, RAGGED_READS, seed=7, var_len=True, n_rate=0.01)
         from scalce_tpu_torch.io import fastq
         blocks = fastq.iter_blocks(src, SLICE["block_reads"],
                                    SLICE["max_read_len"])
         group = [next(blocks) for _ in range(4)]
         blocks.close()
-        measured = check_kernels(group, dev, kernels)           # phase 3
-        del group
+        blocks = fastq.iter_blocks(rag, SLICE["block_reads"],
+                                   SLICE["max_read_len"])
+        ragged = next(blocks)
+        blocks.close()
+        measured = check_kernels(group, ragged, dev, kernels)   # phase 3
+        del group, ragged
 
         reset(kernels)                                          # phase 4
         t1 = {}        # the -T 1 runs that phase 10 repeats at -T 4
@@ -1394,6 +1502,8 @@ def main() -> int:
         if not all(launches.values()):
             raise AssertionError(f"a kernel never ran on the main path: "
                                  f"{launches}")
+        check_sequence_kernels("main path", t1["main decompress"]["launches"],
+                               MAIN_BLOCKS)
         comp = sum(len(b) for _, b in triplet(os.path.join(tmp, "main")))
         mb = len(data) / 1e6
         say(f"main path: {MAIN_READS} reads, {len(data)} B -> {comp} B "
@@ -1401,9 +1511,8 @@ def main() -> int:
         say(f"compress {t_c:.3f} s = {mb / t_c:.2f} MB/s | {smi}")
         say(f"decompress {t_d:.3f} s = {mb / t_d:.2f} MB/s | {smi}")
 
-        rag = os.path.join(tmp, "ragged.fastq")                 # phase 5
-        write_fastq(rag, RAGGED_READS, seed=7, var_len=True, n_rate=0.01)
-        t_gpu = compress_file(rag, os.path.join(tmp, "rg"), "cuda")
+        t_gpu = compress_file(rag, os.path.join(tmp, "rg"),
+                              "cuda")                           # phase 5
         t_cpu = compress_file(rag, os.path.join(tmp, "rc"), "cpu")
         gpu, cpu = triplet(os.path.join(tmp, "rg")), \
             triplet(os.path.join(tmp, "rc"))
@@ -1417,6 +1526,7 @@ def main() -> int:
         sharded, driver = check_data_parallel(src, tmp, kernels, smi,
                                               t_c, t1)          # phase 6
         launches.update(K5=driver["K5"], K6=driver["K6"])
+        dp_launches = {"K7": driver["K7"], "K8": driver["K8"]}
         check_paired(tmp, kernels, smi, t1)                     # phase 7
         check_lossy(src, data, comp, tmp, kernels, smi, t1)     # phase 8
         check_cli_defaults(src, data, tmp, kernels, smi, t1)    # phase 9
@@ -1432,17 +1542,21 @@ def main() -> int:
     # K2 also through the lossy LUT and grids-only (the data-parallel
     # path's); K4 also at the main path's remainder group (D = 1); K5 and
     # K6 also at one block's shapes (the one-card --data-parallel
-    # driver's); K6 also through its flat entry (the all-reduce's)
+    # driver's); K6 also through its flat entry (the all-reduce's); K7
+    # also on the ragged block; K8 also on K5's group of 4
     other = {"K1": (("K1 lut", "lut"),),
              "K2": (("K2 lut", "lut"), ("K2 grids", "grids_only")),
              "K4": (("K4 D=1", "d1"),), "K5": (("K5 1 block", "one_block"),),
-             "K6": (("K6 1 block", "one_block"), ("K6 flat", "flat"))}
+             "K6": (("K6 1 block", "one_block"), ("K6 flat", "flat")),
+             "K7": (("K7 ragged", "ragged"),), "K8": (("K8 group", "group"),)}
     print(json.dumps({"kernels": [
         {"name": f"{name} {fn.__name__}", "route": "cuda",
          "source": mod.SOURCE, "replaces": mod.REPLACES,
          "launches": launches[name], "launches_T4": launches_t4[name],
          **({"sharded_launches": sharded[name]}
             if name in ("K5", "K6") else {}),
+         **({"dp_launches": dp_launches[name]} if name in dp_launches
+            else {}),
          **measured[name],
          **{key: measured[case] for case, key in other.get(name, ())}}
         for name, (mod, fn) in kernels.items()]}))

@@ -8,9 +8,10 @@ The generic coder API (:func:`rans_encode` over any flat table,
 and K6 (``ops/histogram.py``), which also take D blocks' grids against
 :func:`stacked_rows` of their tables at once; the quality stream's
 table-resident scans are K3 (``ops/rans_encode.py``) and K4
-(``ops/rans_decode.py``).  The
-TPU's two-step f32 divide and lax.scan formulation are not carried over —
-torch divides int64 exactly.
+(``ops/rans_decode.py``), and :func:`compact_emissions` (either encode's
+words per lane) is K8 (``ops/compact.py``).  The TPU's two-step f32
+divide and lax.scan formulation are not carried over — torch divides
+int64 exactly.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 import torch
+
+from scalce_tpu_torch.ops.compact import compact_emissions  # noqa: F401 (K8)
 
 PROB_BITS = 12
 M_TOTAL = 1 << PROB_BITS
@@ -62,21 +65,6 @@ def rans_encode(sym: torch.Tensor, ctx: torch.Tensor,
     return encode_grids(sym[None], ctx[None],
                         freq_lut.reshape(1, C, n_syms),
                         cum_lut.reshape(1, C, n_syms), T)
-
-
-def compact_emissions(words: torch.Tensor, emits: torch.Tensor
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-lane compaction of ``[T, N]`` emissions: ``(packed [N, T],
-    counts i32 [N])`` with lane n's words in decode order at
-    ``packed[n, :counts[n]]`` and zeros beyond.  A cumsum gives each
-    emitted word its slot; one scatter places it (non-emitted words go to
-    a discarded column)."""
-    T, N = words.shape
-    et = emits.T
-    dst = torch.where(et, torch.cumsum(et, dim=1) - 1, T)
-    out = torch.zeros((N, T + 1), dtype=words.dtype, device=words.device)
-    out.scatter_(1, dst, words.T)
-    return out[:, :T].contiguous(), et.sum(dim=1, dtype=torch.int32)
 
 
 def context_histogram(sym: torch.Tensor, ctx: torch.Tensor, n_ctx: int,

@@ -25,9 +25,9 @@ uploads once per device.
 
 Per block on the device placement: stage A (unpack the 2-bit upload,
 canonical cores, sort keys, one stable multi-key sort, permute), stage B
-(aligned-predecessor delta of the sorted sequences; with device-placed
+(aligned-predecessor delta of the sorted sequences, K7; with device-placed
 qualities, the quality grids and histogram, through the lossy map if
-any, in one K2 launch), pass B of device-placed qualities (K3 and the
+any, in one K2 launch), pass B of device-placed qualities (K3, then K8's
 compaction) and the downloads, all queued on the device; then the host
 assembly of the ``n``/``r``/``q`` payloads, which waits for the
 downloads and where host-placed qualities (the CLI's default) are
@@ -54,16 +54,15 @@ from scalce_tpu_torch.streams import names as names_stream
 from scalce_tpu_torch.streams.seqs import _pack2bit_np
 from scalce_tpu_torch.timing import stage
 from scalce_tpu_torch.device import resolve_device
-from scalce_tpu_torch.ops import core_match, reorder
+from scalce_tpu_torch.ops import core_match, delta_seq, reorder
 from scalce_tpu_torch.ops.minimizer import (NO_KEY, minimizer_keys,
                                             segment_minimizer_keys)
-from scalce_tpu_torch.ops.bitops import (MASK32, pack_bases_u32, popcount32,
-                                         to_u32_bits, unpack_bases_u32)
+from scalce_tpu_torch.ops.bitops import (MASK32, to_u32_bits,
+                                         unpack_bases_u32)
 from scalce_tpu_torch.streams import qualities, qualities_host, seqs
 from scalce_tpu_torch.transfer import Fetched, Link, Staged
 
-_DELTA_K = 4          # candidate predecessors per read (2-bit selector)
-_EVEN = 0x55555555
+_DELTA_K = delta_seq.DELTA_K   # candidate predecessors of the host match
 #: the widest short read (Config's rule): wider blocks are long reads
 SHORT_READ_MAX = 32752
 #: long reads: the target segment length of the v7 multi-anchor delta
@@ -111,94 +110,12 @@ def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
         torch.uint8)
 
 
-def _shifted_eq(P: torch.Tensor, prev_words: torch.Tensor,
-                len_s: torch.Tensor, prev_len: torch.Tensor,
-                shift: torch.Tensor, row_ok: torch.Tensor) -> torch.Tensor:
-    """Packed equality mask ``[B, W]``: the low bit of 2-bit lane c of
-    the row is set where ``prev[c + shift] == codes[c]`` and c lies in
-    ``[max(-shift, 0), min(len, prev_len - shift))`` — the bases the
-    predecessor can supply.  The shifted predecessor window is one
-    word-level gather plus a funnel shift."""
-    B, W = P.shape
-    dev = P.device
-    zeros = torch.zeros((B, W), dtype=torch.int64, device=dev)
-    padded = torch.cat([zeros, prev_words, zeros, zeros[:, :1]], dim=1)
-    widx = ((shift >> 4) + W)[:, None] + torch.arange(
-        W + 1, dtype=torch.int64, device=dev)[None, :]
-    G = padded.gather(1, widx)                       # [B, W + 1]
-    bs = (2 * (shift & 15))[:, None]
-    g0, g1 = G[:, :W], G[:, 1:]
-    shifted = torch.where(bs == 0, g0,
-                          ((g0 << bs) & MASK32) | (g1 >> (32 - bs)))
-    x = shifted ^ P
-    eq = ~(x | (x >> 1)) & _EVEN
-    base0 = 16 * torch.arange(W, dtype=torch.int64, device=dev)[None, :]
-    lo = torch.clamp(-shift, min=0)
-    hi = torch.minimum(len_s, prev_len - shift)
-    n1 = torch.clamp(hi[:, None] - base0, 0, 16)
-    n0 = torch.clamp(lo[:, None] - base0, 0, 16)
-    ones1 = torch.where(n1 == 0, 0, (MASK32 << (32 - 2 * n1)) & MASK32)
-    ones0 = torch.where(n0 == 0, 0, (MASK32 << (32 - 2 * n0)) & MASK32)
-    return eq & ones1 & ~ones0 & torch.where(row_ok, _EVEN, 0)[:, None]
-
-
 def _delta_seq(codes_s: torch.Tensor, len_s: torch.Tensor,
                ck_s: torch.Tensor, cp_s: torch.Tensor,
                n_reads: int) -> Dict[str, torch.Tensor]:
-    """Aligned-predecessor delta over the sorted block.
-
-    Each read matches against the best of its ``_DELTA_K`` predecessors
-    in the same core bucket (most matching bases; a tie goes to the
-    nearest).  Returns ``mask_bits`` u8 ``[B, L/8]`` (copy bits,
-    LSB-first), ``shifts`` i16 ``[B]``, ``pred_k`` u8 ``[B]``,
-    ``lit_packed`` u32 ``[B*L/16]`` (the non-copied bases, row-major,
-    2-bit big-endian, zero-padded) and ``n_lits``."""
-    B, L = codes_s.shape
-    dev = codes_s.device
-    row = torch.arange(B, dtype=torch.int64, device=dev)
-    col = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
-    len_s = len_s.to(torch.int64)
-    cp_s = cp_s.to(torch.int64)
-    P = pack_bases_u32(codes_s)                      # [B, W]
-
-    best_count = torch.full((B,), -1, dtype=torch.int64, device=dev)
-    best_shift = torch.zeros(B, dtype=torch.int64, device=dev)
-    best_k = torch.zeros(B, dtype=torch.int64, device=dev)
-    for k in range(1, _DELTA_K + 1):
-        src = (row - k).clamp(min=0)
-        same = ((ck_s == ck_s[src]) & (ck_s != core_match.NO_CORE)
-                & (row >= k) & (row < n_reads))
-        shift = torch.where(same, cp_s[src] - cp_s, 0)
-        eqm = _shifted_eq(P, P[src], len_s, len_s[src], shift, same)
-        cnt = torch.where(same, popcount32(eqm).sum(dim=1), -1)
-        better = cnt > best_count
-        best_count = torch.where(better, cnt, best_count)
-        best_shift = torch.where(better, shift, best_shift)
-        best_k = torch.where(better, k - 1, best_k)
-
-    # rebuild the winning mask once from the winning predecessor row
-    src = (row - 1 - best_k).clamp(min=0)
-    eqm = _shifted_eq(P, P[src], len_s, len_s[src], best_shift,
-                      best_count >= 0)
-    bitpos = 2 * (15 - col % 16)
-    match = ((eqm[:, :, None].expand(-1, -1, 16).reshape(B, -1) >> bitpos)
-             & 1).bool()
-
-    # literals: valid non-copied bases, compacted row-major by a cumsum
-    # scatter (non-literals land in a discarded trailing slot)
-    lit_mask = (~match & (col < len_s[:, None])).reshape(-1)
-    n_lits = lit_mask.sum()
-    dst = torch.where(lit_mask, torch.cumsum(lit_mask, dim=0) - 1, B * L)
-    flat = torch.zeros(B * L + 1, dtype=torch.uint8, device=dev)
-    flat.scatter_(0, dst, codes_s.reshape(-1))
-    lit_packed = pack_bases_u32(flat[:B * L])
-
-    bit_w = 1 << torch.arange(8, dtype=torch.int64, device=dev)
-    mask_bits = (match.reshape(B, L // 8, 8).to(torch.int64) * bit_w).sum(
-        dim=2).to(torch.uint8)
-    return {"mask_bits": mask_bits, "shifts": best_shift.to(torch.int16),
-            "pred_k": best_k.to(torch.uint8), "lit_packed": lit_packed,
-            "n_lits": n_lits}
+    """Aligned-predecessor delta over the sorted block: kernel K7
+    (``ops/delta_seq.py::delta_seq``)."""
+    return delta_seq.delta_seq(codes_s, len_s, ck_s, cp_s, n_reads)
 
 
 def _stage_a_prologue(seq_packed: torch.Tensor, lengths: torch.Tensor,

@@ -55,10 +55,12 @@ from scalce_tpu_torch import timing
 from scalce_tpu_torch.device import resolve_device
 from scalce_tpu_torch.pipeline import driver
 
-#: the port's hand-written kernels, by their CUDA function names
+#: the port's hand-written kernels, by their CUDA function names (K7:
+#: its counting and emitting kernels)
 PORT_KERNELS = {"K1": "core_rank_kernel", "K2": "hist_ctx_kernel",
                 "K3": "rans_encode_kernel", "K4": "rans_decode_kernel",
-                "K5": "rans_encode_flat_kernel", "K6": "histogram_kernel"}
+                "K5": "rans_encode_flat_kernel", "K6": "histogram_kernel",
+                "K7": "delta_seq_", "K8": "compact_kernel"}
 
 #: the slice's configuration (chip_smoke.py's SLICE)
 SLICE = dict(block_reads=1 << 18, max_read_len=128, qual_T_target=2048,
@@ -152,7 +154,7 @@ def _union_s(spans: List[tuple]) -> float:
 
 
 def _kind(name: str) -> str:
-    """Device event -> one of K1-K6, ``pageable copies`` (to or from
+    """Device event -> one of K1-K8, ``pageable copies`` (to or from
     pageable host memory), ``pinned copies`` (page-locked), ``other
     copies`` (device to device, memsets) or ``torch kernels``."""
     for k, fn in PORT_KERNELS.items():

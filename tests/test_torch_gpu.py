@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from scalce_tpu_torch.models import entropy
-from scalce_tpu_torch.ops import core_rank, hist, histogram, rans, \
+from scalce_tpu_torch.ops import compact, core_match, core_rank, \
+    delta_seq, hist, histogram, rans, \
     rans_decode, rans_encode, rans_encode_flat
 from scalce_tpu_torch.streams import qualities
 
@@ -300,6 +301,100 @@ def test_encode_grids_kernel(cuda, order, D, B, L, T_target):
         for field in ("freq", "states", "counts", "words"):
             np.testing.assert_array_equal(getattr(enc, field),
                                           getattr(one, field))
+
+
+def _delta_block(seed, B, L, max_len, n_reads, case):
+    """Stage A's outputs for a sorted block (``tests/test_torch_delta_seq.
+    py::delta_block``'s shapes): reads of up to ``max_len`` bases from a
+    genome of 3L in core buckets of 1-7 rows, 5% substitutions, padding
+    rows past ``n_reads``; ``ties`` repeats each read once, ``no_core``
+    puts a third of the rows at NO_CORE, ``all_literal`` gives each row
+    its own core, ``edge_shift`` alternates cp between 0 and L - 1 at full
+    length."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, 3 * L)
+    bucket = np.cumsum(rng.integers(0, 7, B) == 0)
+    anchor = rng.integers(L, 2 * L, bucket[-1] + 1)
+    ln = rng.integers(0, max_len + 1, B)
+    cp = np.minimum(rng.integers(0, L, B), np.maximum(ln - 1, 0))
+    if case == "edge_shift":
+        ln[:] = L
+        cp = np.where(np.arange(B) % 2, L - 1, 0)
+    ck = bucket.astype(np.int64) * 7919 + 5
+    if case == "no_core":
+        ck[rng.random(B) < 1 / 3] = core_match.NO_CORE
+    if case == "all_literal":
+        ck = np.arange(B, dtype=np.int64)
+    start = anchor[bucket] - cp
+    codes = genome[start[:, None] + np.arange(L)[None, :]].astype(np.uint8)
+    mut = rng.random((B, L)) < 0.05
+    codes[mut] = rng.integers(0, 4, int(mut.sum()))
+    if case == "ties":
+        for a in (codes, ln, cp, ck):
+            a[1::2] = a[::2][: B // 2]
+    codes[np.arange(L)[None, :] >= ln[:, None]] = 0
+    ln[n_reads:], ck[n_reads:], cp[n_reads:] = 0, core_match.NO_CORE, 0
+    codes[n_reads:] = 0
+    return codes, ln.astype(np.int64), ck, cp.astype(np.int64)
+
+
+@pytest.mark.parametrize("B,L,max_len,case,n_reads", [
+    (1, 16, 16, "random", 1), (300, 112, 101, "random", 300),
+    (257, 160, 160, "random", 250), (4096, 128, 128, "random", 4000),
+    (64, 32752, 32752, "random", 64), (4096, 128, 128, "ties", 4096),
+    (4096, 128, 128, "no_core", 4096), (4096, 128, 128, "all_literal", 4096),
+    (1024, 128, 128, "edge_shift", 1024),
+    (64, 32752, 32752, "edge_shift", 60)])
+def test_delta_seq_kernel(cuda, B, L, max_len, case, n_reads):
+    """K7 against its plain version, every output exact (the literal
+    words after the download's narrowing to int32): one read, reads of
+    up to 101 bases in 112 columns, W = L/16 below, at and far above a
+    warp's 32 words (L = 32752, W = 2047), padding rows, ties, NO_CORE,
+    all-literal rows, shifts of +-(L-1).  Every output byte is written
+    (the launch alone over outputs filled with junk)."""
+    arrays = _delta_block(B + L, B, L, max_len, n_reads, case)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays] + [n_reads]
+    want = delta_seq.delta_seq_plain(*args)
+    want["lit_packed"] = want["lit_packed"].to(torch.int32)
+    got = delta_seq.delta_seq(*args)
+    assert got.keys() == want.keys()
+    for name in want:
+        _equal((got[name],), (want[name],))
+    launch, out = delta_seq.prepare(*args)
+    for name in ("mask_bits", "shifts", "pred_k", "lit_packed"):
+        out[name].fill_(0x5A)
+    launch()
+    for name in want:
+        _equal((out[name],), (want[name],))
+    if case == "edge_shift":
+        assert {-(L - 1), L - 1} <= set(want["shifts"].tolist())
+    if case == "all_literal":
+        assert int(want["n_lits"]) == int(arrays[1].sum())
+
+
+@pytest.mark.parametrize("T,N", [(1, 1), (7, 50), (2048, 333),
+                                 (2048, 16384)])
+def test_compact_kernel(cuda, T, N):
+    """K8 against its plain version narrowed to int16 (the download's
+    form): words with the top bit set, lane 0 emitting at every step,
+    lane N-1 at none, N not a multiple of 32; the zeros past each lane's
+    count written over junk."""
+    rng = np.random.default_rng(T + N)
+    words = torch.from_numpy(rng.integers(0, 1 << 16, (T, N)).astype(
+        np.int32)).to(cuda)
+    emits = torch.from_numpy(rng.random((T, N)) < rng.random(N)[None, :])
+    emits[:, 0] = True
+    emits[:, -1] = N == 1
+    emits = emits.to(cuda)
+    want_p, want_c = compact.compact_emissions_plain(words, emits)
+    want = (want_p.to(torch.int16), want_c)
+    _equal(rans.compact_emissions(words, emits), want)
+    launch, out = compact.prepare(words, emits)
+    out[0].fill_(-1)
+    out[1].fill_(-1)
+    launch()
+    _equal(out, want)
+    assert int(want_c[0]) == T and (N == 1 or int(want_c[-1]) == 0)
 
 
 def test_card_data_parallel_matches_cpu(cuda, tmp_path):
@@ -779,6 +874,6 @@ def test_card_profile_names_kernels_and_stages(cuda, tmp_path):
     kinds = {stage_profile._kind(e["name"]) for e in events
              if e.get("cat") == "kernel"}
     spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
-    assert {"K1", "K2", "K3"} <= kinds
+    assert {"K1", "K2", "K3", "K7", "K8"} <= kinds
     assert {"parse FASTQ", "upload", "stage A", "stage B", "pass B",
             "download", "seqs.payload", "write"} <= spans
