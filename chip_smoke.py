@@ -1414,7 +1414,7 @@ def check_feature_surface(src: str, data: bytes, tmp: str, smi: str,
                                "seqs.payload", "write"},
                   "decompress": {"seqs.parse", "quality decode", "_finish",
                                  "render FASTQ", "write"}}
-    # K7 is two kernels per launch (counting, emitting)
+    # K7 is two kernels per launch (match, literal placement)
     want_kinds = {"compress": {k: t1["main"]["launches"][k]
                                * (2 if k == "K7" else 1)
                                for k in ("K1", "K2", "K3", "K7", "K8")},

@@ -49,8 +49,8 @@ _SIGNATURES = {
     "scalce_histogram": [_P, _L, _I, _P, _P],
     "scalce_histogram_grids": [_P, _P, _I, _L, _I, _I, _P, _P],
     "scalce_rans_encode_flat": [_P] * 3 + [_I, _I, _L, _I, _I] + [_P] * 4,
-    "scalce_delta_count": [_P] * 3 + [_I] * 3 + [_L] + [_P] * 5,
-    "scalce_delta_emit": [_P] * 3 + [_I] * 3 + [_L] + [_P] * 7,
+    "scalce_delta_match": [_P] * 4 + [_I] * 5 + [_L] + [_P] * 7,
+    "scalce_delta_place": [_P] * 5 + [_I] * 4 + [_P, _P],
     "scalce_compact": [_P, _P, _I, _I, _P, _P, _P],
 }
 

@@ -11,7 +11,7 @@ same core bucket (most matching bases; a tie goes to the nearest).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -23,6 +23,37 @@ REPLACES = "scalce_tpu/pipeline/encode.py:213"
 
 DELTA_K = 4           # candidate predecessors per read (2-bit selector)
 _EVEN = 0x55555555
+
+MAX_SMEM = 232_448    # shared bytes a CTA may take on the H100
+MAX_ROWS = 128        # rows per tile
+_SMEM_TARGET = 65_536  # a tile's shared bytes where rows allow (3 CTAs/SM)
+_MIN_ROWS = 16        # ... but no fewer rows, while they fit
+
+
+class TilePlan(NamedTuple):
+    """How ``csrc/delta_seq.cu`` cuts a block of W words a row: ``rows``
+    per CTA (both launches), ``group`` lanes per row, and each launch's
+    shared bytes (the match launch's tile of ``rows + DELTA_K`` rows: their
+    packed words, int64 core, int32 len and cp; the place launch's output
+    words)."""
+    rows: int
+    group: int
+    match_smem: int
+    place_smem: int
+
+
+def tile_plan(W: int) -> TilePlan:
+    """The tile plan for W = L/16 words a row (the kernel computes the
+    same shared bytes from ``rows``)."""
+    group = min(32, 1 << (W - 1).bit_length())
+    per_row = 4 * W + 16
+    rows = min(MAX_ROWS, max(_MIN_ROWS, _SMEM_TARGET // per_row - DELTA_K),
+               MAX_SMEM // per_row - DELTA_K)
+    if rows < 1:
+        raise ValueError(f"W = {W}: a row of {per_row} shared bytes leaves "
+                         "no tile in a CTA's shared memory")
+    return TilePlan(rows, group, (rows + DELTA_K) * per_row,
+                    4 * (rows * W + 1))
 
 
 def _shifted_eq(P: torch.Tensor, prev_words: torch.Tensor,
@@ -134,8 +165,8 @@ delta_seq.launches = 0
 def prepare(codes_s: torch.Tensor, len_s: torch.Tensor, ck_s: torch.Tensor,
             cp_s: torch.Tensor, n_reads: int):
     """The CUDA path of :func:`delta_seq` up to the launch.  Returns
-    ``(launch, out)``: each ``launch()`` runs the counting kernel, the
-    scan of the rows' literal counts, and the emitting kernel into
+    ``(launch, out)``: each ``launch()`` runs the match kernel, the scan
+    of the rows' literal counts, and the literal-placement kernel into
     ``out``'s tensors."""
     B, L = codes_s.shape
     dev = codes_s.device
@@ -147,24 +178,27 @@ def prepare(codes_s: torch.Tensor, len_s: torch.Tensor, ck_s: torch.Tensor,
                          f"{codes_s.data_ptr():#x}; the kernel reads rows "
                          "of a multiple of 16 bytes, 16-byte aligned")
     W = L // 16
+    plan = tile_plan(W)
     shifts = torch.empty(B, dtype=torch.int16, device=dev)
     pred_k = torch.empty(B, dtype=torch.uint8, device=dev)
-    lit_count = torch.empty(B, dtype=torch.int32, device=dev)
+    lit_count = torch.empty(B, dtype=torch.int64, device=dev)
     lit_end = torch.empty(B, dtype=torch.int64, device=dev)
     mask_bits = torch.empty((B, 2 * W), dtype=torch.uint8, device=dev)
+    own = torch.empty((B, W), dtype=torch.int32, device=dev)
     lit_packed = torch.empty(B * W, dtype=torch.int32, device=dev)
-    common = (codes_s.data_ptr(), len_s.data_ptr(), ck_s.data_ptr(), B, W,
-              n_reads, core_match.NO_CORE)
+    tiles = (B, W, plan.rows, plan.group)
 
     def launch():
-        _cuda.launch("scalce_delta_count", dev, *common, cp_s.data_ptr(),
-                     shifts.data_ptr(), pred_k.data_ptr(),
-                     lit_count.data_ptr())
-        torch.cumsum(lit_count, 0, dtype=torch.int64, out=lit_end)
-        lit_packed.zero_()
-        _cuda.launch("scalce_delta_emit", dev, *common, shifts.data_ptr(),
-                     pred_k.data_ptr(), lit_count.data_ptr(),
-                     lit_end.data_ptr(), mask_bits.data_ptr(),
+        _cuda.launch("scalce_delta_match", dev, codes_s.data_ptr(),
+                     len_s.data_ptr(), ck_s.data_ptr(), cp_s.data_ptr(),
+                     *tiles, n_reads, core_match.NO_CORE, shifts.data_ptr(),
+                     pred_k.data_ptr(), mask_bits.data_ptr(),
+                     lit_count.data_ptr(), own.data_ptr(),
+                     lit_packed.data_ptr())
+        torch.cumsum(lit_count, 0, out=lit_end)
+        _cuda.launch("scalce_delta_place", dev, own.data_ptr(),
+                     mask_bits.data_ptr(), len_s.data_ptr(),
+                     lit_count.data_ptr(), lit_end.data_ptr(), *tiles,
                      lit_packed.data_ptr())
     return launch, {"mask_bits": mask_bits, "shifts": shifts,
                     "pred_k": pred_k, "lit_packed": lit_packed,

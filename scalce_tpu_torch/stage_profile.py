@@ -56,7 +56,7 @@ from scalce_tpu_torch.device import resolve_device
 from scalce_tpu_torch.pipeline import driver
 
 #: the port's hand-written kernels, by their CUDA function names (K7:
-#: its counting and emitting kernels)
+#: its match and literal-placement kernels)
 PORT_KERNELS = {"K1": "core_rank_kernel", "K2": "hist_ctx_kernel",
                 "K3": "rans_encode_kernel", "K4": "rans_decode_kernel",
                 "K5": "rans_encode_flat_kernel", "K6": "histogram_kernel",

@@ -136,6 +136,21 @@ def test_delta_seq_wrapper_on_cpu_takes_the_plain_version():
     assert delta_seq.delta_seq.launches == before
 
 
+@pytest.mark.parametrize("W", [1, 7, 8, 10, 32, 33, 512, 2047])
+def test_delta_seq_tile_plan(W):
+    """The CUDA kernels' tile plan for W = L/16 words a row: at least one
+    row a tile, both launches' shared bytes within a CTA's 232,448 on the
+    H100, a power-of-two group of at most a warp that covers the row's
+    words up to 32, and a tile of at least a warp's worth of words."""
+    plan = delta_seq.tile_plan(W)
+    assert plan.rows >= 1
+    assert max(plan.match_smem, plan.place_smem) <= 232_448
+    assert plan.group & (plan.group - 1) == 0
+    assert min(W, 32) <= plan.group <= 32
+    assert plan.rows * W >= 32
+    assert plan.match_smem == (plan.rows + delta_seq.DELTA_K) * (4 * W + 16)
+
+
 def _emissions(seed, T, N):
     """Random u16 words and emits ``[T, N]``, lane 0 emitting at every
     step and lane N-1 at none (when N > 1)."""

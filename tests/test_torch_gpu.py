@@ -310,10 +310,14 @@ def _delta_block(seed, B, L, max_len, n_reads, case):
     rows past ``n_reads``; ``ties`` repeats each read once, ``no_core``
     puts a third of the rows at NO_CORE, ``all_literal`` gives each row
     its own core, ``edge_shift`` alternates cp between 0 and L - 1 at full
-    length."""
+    length, ``one_bucket`` puts every row in one bucket (it straddles
+    each tile boundary of the kernel's plan), ``literal_tile`` gives the
+    plan's second tile of rows their own cores."""
     rng = np.random.default_rng(seed)
     genome = rng.integers(0, 4, 3 * L)
     bucket = np.cumsum(rng.integers(0, 7, B) == 0)
+    if case == "one_bucket":
+        bucket[:] = 0
     anchor = rng.integers(L, 2 * L, bucket[-1] + 1)
     ln = rng.integers(0, max_len + 1, B)
     cp = np.minimum(rng.integers(0, L, B), np.maximum(ln - 1, 0))
@@ -325,6 +329,9 @@ def _delta_block(seed, B, L, max_len, n_reads, case):
         ck[rng.random(B) < 1 / 3] = core_match.NO_CORE
     if case == "all_literal":
         ck = np.arange(B, dtype=np.int64)
+    if case == "literal_tile":
+        R = delta_seq.tile_plan(L // 16).rows
+        ck[R:2 * R] = 1 << 40 | np.arange(R, 2 * R)
     start = anchor[bucket] - cp
     codes = genome[start[:, None] + np.arange(L)[None, :]].astype(np.uint8)
     mut = rng.random((B, L)) < 0.05
@@ -344,14 +351,31 @@ def _delta_block(seed, B, L, max_len, n_reads, case):
     (64, 32752, 32752, "random", 64), (4096, 128, 128, "ties", 4096),
     (4096, 128, 128, "no_core", 4096), (4096, 128, 128, "all_literal", 4096),
     (1024, 128, 128, "edge_shift", 1024),
-    (64, 32752, 32752, "edge_shift", 60)])
+    (64, 32752, 32752, "edge_shift", 60),
+    (513, 128, 128, "random", 513), (4096, 128, 128, "one_bucket", 4096),
+    (600, 16, 16, "one_bucket", 600), (700, 144, 144, "random", 650),
+    (300, 528, 528, "one_bucket", 290), (40, 32752, 32752, "one_bucket", 40),
+    (1024, 128, 128, "literal_tile", 1024),
+    (1024, 128, 128, "random", 700)])
 def test_delta_seq_kernel(cuda, B, L, max_len, case, n_reads):
     """K7 against its plain version, every output exact (the literal
     words after the download's narrowing to int32): one read, reads of
     up to 101 bases in 112 columns, W = L/16 below, at and far above a
     warp's 32 words (L = 32752, W = 2047), padding rows, ties, NO_CORE,
-    all-literal rows, shifts of +-(L-1).  Every output byte is written
-    (the launch alone over outputs filled with junk)."""
+    all-literal rows, shifts of +-(L-1).  At the tile plan's edges: B
+    one row past a multiple of the tile (a last tile of 1 row), a core
+    bucket across every tile boundary (candidates in the halo rows), W =
+    1, 9, 33 and 2047 (a row's group loops over its words), a tile of
+    all-literal rows between matched ones, a last tile of padding rows
+    only.  Every output byte is written (the launch alone over outputs
+    filled with junk)."""
+    rows = delta_seq.tile_plan(L // 16).rows
+    if (B, case) == (513, "random"):
+        assert B % rows == 1
+    if case == "one_bucket":
+        assert B > rows
+    if n_reads == 700:
+        assert B - n_reads >= rows
     arrays = _delta_block(B + L, B, L, max_len, n_reads, case)
     args = [torch.from_numpy(a).to(cuda) for a in arrays] + [n_reads]
     want = delta_seq.delta_seq_plain(*args)
@@ -370,6 +394,9 @@ def test_delta_seq_kernel(cuda, B, L, max_len, case, n_reads):
         assert {-(L - 1), L - 1} <= set(want["shifts"].tolist())
     if case == "all_literal":
         assert int(want["n_lits"]) == int(arrays[1].sum())
+    if case == "literal_tile":
+        bits = want["mask_bits"]
+        assert bits[:rows].any() and not bits[rows:2 * rows].any()
 
 
 @pytest.mark.parametrize("T,N", [(1, 1), (7, 50), (2048, 333),

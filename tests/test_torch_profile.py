@@ -113,10 +113,10 @@ def test_union_of_device_spans(spans, want):
     ("rans_decode_kernel(unsigned int const*, ...)", "K4"),
     ("void (anonymous namespace)::rans_encode_flat_kernel<true>(...)", "K5"),
     ("void (anonymous namespace)::histogram_kernel<true, true>(...)", "K6"),
-    ("(anonymous namespace)::delta_seq_count_kernel(unsigned char const*, "
-     "...)", "K7"),
-    ("(anonymous namespace)::delta_seq_emit_kernel(unsigned char const*, "
-     "...)", "K7"),
+    ("void (anonymous namespace)::delta_seq_match_kernel<8>(unsigned char "
+     "const*, ...)", "K7"),
+    ("void (anonymous namespace)::delta_seq_place_kernel<8>(unsigned int "
+     "const*, ...)", "K7"),
     ("(anonymous namespace)::compact_kernel(int const*, ...)", "K8"),
     ("Memcpy DtoH (Device -> Pageable)", "pageable copies"),
     ("Memcpy HtoD (Pageable -> Device)", "pageable copies"),
