@@ -23,14 +23,17 @@ Phases (the first failure exits non-zero; no phase is caught):
      and for its first block alone, and K6's flat entry at the lossy
      all-reduce's shapes (one block's symbols into 95 cells); K7 (the
      sequence delta) on that block's stage-A outputs and on phase 5's
-     ragged block with N bases; K8 (the compaction) on K3's outputs for
-     that block at order 1 and on K5's for the group of 4; exact
-     equality (K7's literal words and K8's words after the download's
-     narrowing); per kernel, timed with CUDA events: the wrapper, the
-     launch alone (each kernel's ``prepare``), the plain version, and
-     the one PyTorch call that computes the same function where there is
-     one (the flat K6: ``torch.bincount``); and its bound from this run's
-     bytes and operations, which the launch alone must not beat
+     ragged block with N bases; K8 (the compaction) on K3's int16 words
+     for that block at order 1 and on K5's for the group of 4, with the
+     emitted share sum(counts) / (N T) of each; exact equality (K3's,
+     K5's and K8's words and K7's literal words after the download's
+     narrowing of the plain versions'); per kernel, timed with CUDA
+     events: the wrapper, the launch alone (each kernel's ``prepare``),
+     the plain version, and the one PyTorch call that computes the same
+     function where there is one (the flat K6: ``torch.bincount``; K8:
+     the reference's per-lane ``torch.sort`` of ``key << 16 | word``,
+     the sort alone); and its bound from this run's bytes and
+     operations, which the launch alone must not beat
   4. main path: compress a 1,148,576-read synthetic FASTQ on the card
      (single-end, lossless, every stage on the device, order 1, gz),
      decompress it in keep-order, require the input bytes back and K1-K4,
@@ -337,6 +340,35 @@ def compact_plain_narrowed(words, emits):
     return packed.to(torch.int16), counts
 
 
+def encode_plain_narrowed(fn):
+    """An encoder's plain version ``fn`` with its int32 words narrowed to
+    the int16 holding their u16 bits (K3 and K5 write them so)."""
+
+    def run(*args):
+        states, words, emits = fn(*args)
+        return states, words.to(torch.int16), emits
+    return run
+
+
+def sort_library(words, emits):
+    """The one PyTorch call under the reference's compaction
+    (``scalce_tpu/ops/rans.py:157-186``): ``torch.sort`` along each lane
+    of ``key << 16 | word`` (int32 ``[N, T]``; key the word's compacted
+    slot, T where it is not emitted).  The key is built here, once; the
+    call timed is the sort alone (values and indices), without the
+    transpose, cumsum and tail mask that make it the whole function."""
+    et = emits.T
+    key = torch.where(et, torch.cumsum(et, dim=1, dtype=torch.int32) - 1,
+                      emits.shape[0])
+    packed_key = (key << 16) | (words.T.to(torch.int32) & 0xFFFF)
+    return lambda: torch.sort(packed_key, dim=1)
+
+
+def emitted_share(counts, T: int) -> float:
+    """The share of the [N, T] word matrix that holds emitted words."""
+    return int(counts.sum()) / (counts.numel() * T)
+
+
 def check_kernels(blocks, ragged, dev, kernels) -> dict:
     """Phase 3: each kernel against its plain version at the slice's
     shapes, timed: K1-K4 and K7 from one real block (K4 in the main
@@ -442,13 +474,17 @@ def check_kernels(blocks, ragged, dev, kernels) -> dict:
 
     freq, cum = tables[1]
     cases.append(Case(
-        "K3", rans_encode.encode_scan, rans_encode.encode_scan_plain,
+        "K3", rans_encode.encode_scan,
+        encode_plain_narrowed(rans_encode.encode_scan_plain),
         (sym, ctx, freq, cum, T, 1), rans_encode.prepare, 20, 2,
         (sym, ctx, freq, cum), n_valid))
+    # K8 on K3's int16 words; the library call is the reference's sort
     _, words, emits = rans_encode.encode_scan(sym, ctx, freq, cum, T, 1)
     cases.append(Case("K8", compact.compact_emissions, compact_plain_narrowed,
                       (words, emits), compact.prepare, 20, 3, (words, emits),
-                      words.numel()))
+                      words.numel(), library=sort_library(words, emits)))
+    share = {"K8": emitted_share(compact.compact_emissions(words, emits)[1],
+                                 T)}
 
     encoded = {}
 
@@ -458,8 +494,8 @@ def check_kernels(blocks, ragged, dev, kernels) -> dict:
             f, cm = tables[order]
             st, w, e = rans_encode.encode_scan(s, c, f, cm, T, order)
             if order != 1:
-                max_abs_err((st, w, e), rans_encode.encode_scan_plain(
-                    s, c, f, cm, T, order))
+                max_abs_err((st, w, e), encode_plain_narrowed(
+                    rans_encode.encode_scan_plain)(s, c, f, cm, T, order))
             packed, wc = rans.compact_emissions(w, e)
             encoded[order] = qualities.finish_encoded(f, st, packed, wc, B,
                                                       L, T, order)
@@ -493,16 +529,18 @@ def check_kernels(blocks, ragged, dev, kernels) -> dict:
         gfreq, gcum = entropy.device_normalize(gcounts, C, qualities.N_SYMS)
         cases.append(Case(
             "K5" + tag, rans_encode_flat.encode_grids,
-            rans_encode_flat.encode_grids_plain, (gsym, gctx, gfreq, gcum, T),
-            rans_encode_flat.prepare, 10, 1, (gsym, gctx, gfreq, gcum),
-            gsym.numel()))
+            encode_plain_narrowed(rans_encode_flat.encode_grids_plain),
+            (gsym, gctx, gfreq, gcum, T), rans_encode_flat.prepare, 10, 1,
+            (gsym, gctx, gfreq, gcum), gsym.numel()))
         if not tag:
             _, gwords, gemits = rans_encode_flat.encode_grids(
                 gsym, gctx, gfreq, gcum, T)
             cases.append(Case(
                 "K8 group", compact.compact_emissions, compact_plain_narrowed,
                 (gwords, gemits), compact.prepare, 10, 1, (gwords, gemits),
-                gwords.numel()))
+                gwords.numel(), library=sort_library(gwords, gemits)))
+            share["K8 group"] = emitted_share(
+                compact.compact_emissions(gwords, gemits)[1], T)
         say(f"group of {len(group)} block(s): K5 and K6 on grids "
             f"{list(gsym.shape)}, {len(group) * C * qualities.N_SYMS} "
             f"cells; K5 T = {T}, {gsym.numel() // T} lanes")
@@ -521,6 +559,11 @@ def check_kernels(blocks, ragged, dev, kernels) -> dict:
         out[case.name] = m = case.run()
         if case.name == "K1 lut":
             m.update(lut_reads)
+        if case.name in share:
+            m["emitted_share"] = share[case.name]
+            say(f"{case.name}: emitted share sum(counts) / (N T) = "
+                f"{share[case.name]} (the share of pass B's whole-matrix "
+                f"download in use)")
         lib = "none" if m["library_ms"] is None else \
             f"{m['library_ms']:.3f}"
         say(f"{case.name}: equal to plain; wrapper {m['ms']:.3f} ms, kernel "

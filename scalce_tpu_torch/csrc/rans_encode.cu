@@ -5,8 +5,9 @@
 // the [B, L] symbol and context grids and walks them from t = T - 1 down
 // to 0 with a u32 state starting at 2^16; each step looks up (f, cum) at
 // (ctx, sym), emits the low 16 bits when (x >> 20) >= f, and sets
-// x = ((x / f) << 12) + x % f + cum.  Words (as int32) and emit flags are
-// written in [T, N] (decode order); compaction follows in torch.
+// x = ((x / f) << 12) + x % f + cum.  Words (as int16 holding the u16
+// bits, the form K8 reads and the download takes) and emit flags are
+// written in [T, N] (decode order); K8 (compact.cu) compacts them.
 //
 // Bound on the H100: reading the two int64 grids as stage B leaves them
 // (2 x 8 bytes per cell; the low word holds the value) and writing the
@@ -142,7 +143,7 @@ __global__ void __launch_bounds__(128) rans_encode_kernel(
     const uint32_t* __restrict__ sym, const uint32_t* __restrict__ ctx,
     const uint16_t* __restrict__ tab, int N, int T, int L, int R, int PB,
     int cw, int whole, uint32_t* __restrict__ states,
-    int32_t* __restrict__ words, uint8_t* __restrict__ emits) {
+    int16_t* __restrict__ words, uint8_t* __restrict__ emits) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int k = T / L;
   const int nseg = min(PB, (L + cw - 1) / cw);
@@ -240,7 +241,7 @@ __global__ void __launch_bounds__(128) rans_encode_kernel(
           const uint32_t f = v[i] >> 16;
           const size_t at = (t0 - i) * N + n;
           const bool emit = (x >> 20) >= f;
-          words[at] = (int32_t)(x & 0xFFFFu);
+          words[at] = (int16_t)(x & 0xFFFFu);
           emits[at] = emit;
           if (emit) x >>= 16;
           const uint32_t q = scalce::div_recip(x, f, M[i]);
@@ -267,7 +268,7 @@ cudaError_t launch(const void* sym, const void* ctx, const void* tab, int N,
   rans_encode_kernel<kPairs>
       <<<(N + threads - 1) / threads, threads, smem, stream>>>(
           (const uint32_t*)sym, (const uint32_t*)ctx, (const uint16_t*)tab,
-          N, T, L, R, PB, cw, whole, (uint32_t*)states, (int32_t*)words,
+          N, T, L, R, PB, cw, whole, (uint32_t*)states, (int16_t*)words,
           (uint8_t*)emits);
   return cudaGetLastError();
 }
@@ -292,7 +293,8 @@ __global__ void divmod_recip_kernel(const uint32_t* __restrict__ x,
 // (per row: exclusive cums, the total, a pad; rans.bucket_slabs's
 // layout); R, PB, cw: the context model's
 // position buckets (ctx = 1 + min(col / cw, PB - 1) * R + row, 0 =
-// padding).  states u32 [N]; words int32 [T, N]; emits u8 [T, N].
+// padding).  states u32 [N]; words int16 [T, N] (the u16 bits); emits u8
+// [T, N].
 extern "C" int scalce_rans_encode(const void* sym, const void* ctx,
                                   const void* tab, int N, int T, int L,
                                   int R, int PB, int cw, void* states,

@@ -12,16 +12,20 @@
 // packed table entry tab[(d * C + ctx) * n_syms + sym] = f << 16 | cum.
 // Lane n walks t = T - 1 down to 0 with a u32 state starting at 2^16,
 // emits the low 16 bits when (x >> 20) >= f, and sets
-// x = ((x / f) << 12) + x % f + cum.  Words (as int32, the form
-// rans.compact_emissions reads) and emit flags are written in [T, n_lanes]
-// (decode order).  The kernel knows nothing of the quality context model.
+// x = ((x / f) << 12) + x % f + cum.  Words (as int16 holding the u16
+// bits, the form K8 in rans.compact_emissions reads) and emit flags are
+// written in [T, n_lanes] (decode order).  The kernel knows nothing of
+// the quality context model.
 //
 // Bound on the H100: memory.  Per cell it reads the two int64 grids (16
-// bytes) and writes a 4-byte word and a flag; a group of 4 blocks
-// (262144 x 128 cells each) moves 2.8 GB, one block 0.7 GB.  The group's
+// bytes) and writes a 2-byte word and a flag; a group of 4 blocks
+// (262144 x 128 cells each) moves 2.5 GB, one block 0.64 GB.  The group's
 // table (D * C * 94 u32, 1.1 MB at order 1) stays in L2 and L1.  The
 // serial chain is T steps per lane, with 16,384 lanes per block: about
-// one 128-thread CTA per SM for one block.  What the design does (K3's,
+// one 128-thread CTA per SM for one block.  The words' 2-byte stores (64
+// bytes a warp a step) slow that one-block launch against 4-byte ones,
+// while a group's launch gains; K8 reads the narrower words, so the pair
+// is faster either way (PERF.md §6-§7).  What the design does (K3's,
 // csrc/rans_encode.cu, without its position-bucket tables):
 //  - Each lane loads its cells 16 at a time from the int64 grids in
 //    place (16-byte loads of two cells when T is even) one chunk ahead of
@@ -95,7 +99,7 @@ template <bool kPairs, int kAhead>
 __global__ void __launch_bounds__(kThreads, 4) rans_encode_flat_kernel(
     const uint32_t* __restrict__ sym, const uint32_t* __restrict__ ctx,
     const uint32_t* __restrict__ tab, int n_lanes, int T, long long cells,
-    int C, int S, uint32_t* __restrict__ states, int32_t* __restrict__ words,
+    int C, int S, uint32_t* __restrict__ states, int16_t* __restrict__ words,
     uint8_t* __restrict__ emits) {
   __shared__ unsigned long long rcp[scalce::kMaxF + 1];
   for (int f = threadIdx.x; f <= scalce::kMaxF; f += blockDim.x)
@@ -155,7 +159,7 @@ __global__ void __launch_bounds__(kThreads, 4) rans_encode_flat_kernel(
         const uint32_t f = e[i] >> 16;
         const size_t at = (size_t)(hi - 1 - i) * n_lanes + n;
         const bool emit = (x >> 20) >= f;
-        words[at] = (int32_t)(x & 0xFFFFu);
+        words[at] = (int16_t)(x & 0xFFFFu);
         emits[at] = emit;
         if (emit) x >>= 16;
         const uint32_t q = scalce::div_recip(x, f, M[i]);
@@ -177,8 +181,8 @@ __global__ void __launch_bounds__(kThreads, 4) rans_encode_flat_kernel(
 
 // sym, ctx: D blocks' grids as int64 (values below 2^32), `cells` cells per
 // block, contiguous; tab u32 [D * C * n_syms], f << 16 | cum; T divides
-// cells.  states u32 [n_lanes]; words int32 [T, n_lanes]; emits u8
-// [T, n_lanes], n_lanes = D * cells / T.
+// cells.  states u32 [n_lanes]; words int16 [T, n_lanes] (the u16 bits);
+// emits u8 [T, n_lanes], n_lanes = D * cells / T.
 extern "C" int scalce_rans_encode_flat(const void* sym, const void* ctx,
                                        const void* tab, int n_lanes, int T,
                                        long long cells, int C, int n_syms,
@@ -202,7 +206,7 @@ extern "C" int scalce_rans_encode_flat(const void* sym, const void* ctx,
                  : (far ? rans_encode_flat_kernel<true, 4>
                         : rans_encode_flat_kernel<true, 1>);
   k<<<blocks, kThreads, 0, s>>>(g[0], g[1], g[2], n_lanes, T, cells, C,
-                                n_syms, (uint32_t*)states, (int32_t*)words,
+                                n_syms, (uint32_t*)states, (int16_t*)words,
                                 (uint8_t*)emits);
   return (int)cudaGetLastError();
 }

@@ -5,6 +5,9 @@ reference leaves to XLA inside its pass-B jit (no ``pallas_call``).  The
 CUDA kernel is ``csrc/compact.cu``; both pass-B paths call it through
 ``ops/rans.py::compact_emissions``: ``streams/qualities.py::pass_b``
 after K3 (one block) and ``group_encode`` after K5 (a group's lanes).
+On the card both encoders hand it their words as int16 holding the u16
+bits, and it writes ``packed`` in the same form, the one the download
+takes; the plain version takes either width.
 """
 
 from __future__ import annotations
@@ -22,8 +25,9 @@ REPLACES = "scalce_tpu/ops/rans.py:157"
 def compact_emissions_plain(words: torch.Tensor, emits: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of :func:`compact_emissions` (``packed`` in
-    ``words``' dtype).  A cumsum gives each emitted word its slot; one
-    scatter places it (non-emitted words go to a discarded column)."""
+    ``words``' dtype: int32 from the plain encoders, int16 from the
+    kernels).  A cumsum gives each emitted word its slot; one scatter
+    places it (non-emitted words go to a discarded column)."""
     T, N = words.shape
     et = emits.T
     dst = torch.where(et, torch.cumsum(et, dim=1) - 1, T)
@@ -37,9 +41,10 @@ def compact_emissions(words: torch.Tensor, emits: torch.Tensor
     """Per-lane compaction of ``[T, N]`` emissions (u16 words, bool
     emits): ``(packed [N, T], counts i32 [N])`` with lane n's words in
     decode order at ``packed[n, :counts[n]]`` and zeros beyond.  CPU
-    tensors take the plain version; CUDA tensors (int32 words) launch
-    ``csrc/compact.cu``, which writes ``packed`` as int16 holding the u16
-    bits (``qualities.for_download``'s narrowing)."""
+    tensors take the plain version; CUDA tensors (int16 words holding
+    the u16 bits, as K3 and K5 write them) launch ``csrc/compact.cu``,
+    which writes ``packed`` in the same form (``qualities.for_download``'s
+    narrowing)."""
     if words.device.type == "cpu":
         return compact_emissions_plain(words, emits)
     launch, out = prepare(words, emits)
@@ -57,7 +62,7 @@ def prepare(words: torch.Tensor, emits: torch.Tensor):
     kernel once into them."""
     T, N = words.shape
     dev = words.device
-    _cuda.require(words, "words", torch.int32, device=dev)
+    _cuda.require(words, "words", torch.int16, device=dev)
     _cuda.require(emits, "emits", torch.bool, (T, N), dev)
     packed = torch.empty((N, T), dtype=torch.int16, device=dev)
     counts = torch.empty(N, dtype=torch.int32, device=dev)

@@ -57,8 +57,9 @@ def rans_encode(sym: torch.Tensor, ctx: torch.Tensor,
 
     sym, ctx: u32 ``[S]`` (int64), lane-major.  freq_lut, cum_lut: u32
     ``[C * n_syms]`` tables (row = ctx).  Returns ``(states u32 [N],
-    words u16 [T, N] (int32), emits bool [T, N])`` with the time axis in
-    DECODE order: kernel K5 on one block."""
+    words u16 [T, N], emits bool [T, N])`` with the time axis in DECODE
+    order: kernel K5 on one block (words as int32 on the CPU, as int16
+    holding the u16 bits on the card)."""
     # K5's module imports this one for the coder constants
     from scalce_tpu_torch.ops.rans_encode_flat import encode_grids
     C = freq_lut.numel() // n_syms

@@ -3,7 +3,9 @@
 Port of ``scalce_tpu/ops/rans_pallas.py::encode_scan_tbl_pallas``; the
 CUDA kernel is ``csrc/rans_encode.cu``.  Takes the grids and tables
 directly — the reference's ``build_encode_slabs`` bf16 byte planes
-existed only for the TPU's matrix unit.
+existed only for the TPU's matrix unit.  On the card the words come out
+as int16 holding the u16 bits, K8's feed; the plain version keeps the
+reference's int32.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ def encode_scan_plain(sym: torch.Tensor, ctx: torch.Tensor,
                       freq: torch.Tensor, cum: torch.Tensor, T: int,
                       order: int):
     """Plain torch version of :func:`encode_scan` (any context grid:
-    ``order`` is not needed)."""
+    ``order`` is not needed; words as int32)."""
     return encode_scan_flat_plain(*rans.gather_tables(
         sym.reshape(-1), ctx.reshape(-1), freq.reshape(-1), cum.reshape(-1),
         freq.shape[1], T))
@@ -71,7 +73,7 @@ def prepare(sym: torch.Tensor, ctx: torch.Tensor, freq: torch.Tensor,
             raise ValueError(f"encode_scan: {name} not 16-byte aligned")
     _cuda.require(tab, "freq", torch.int16, (C * 96,), dev)
     states = torch.empty(N, dtype=torch.int32, device=dev)
-    words = torch.empty((T, N), dtype=torch.int32, device=dev)
+    words = torch.empty((T, N), dtype=torch.int16, device=dev)
     emits = torch.empty((T, N), dtype=torch.bool, device=dev)
 
     def launch():
@@ -86,9 +88,11 @@ def encode_scan(sym: torch.Tensor, ctx: torch.Tensor, freq: torch.Tensor,
     """rANS-encode ``[B, L]`` symbol/context grids (u32 in int64) of the
     quality context model of ``order`` with ``[C, n_syms]`` tables in
     ``N = B*L/T`` lanes of T symbols.  Returns ``(states u32 [N], words
-    u16 [T, N] (int32), emits bool [T, N])``, time in decode order —
-    what ``rans.rans_encode`` returns.  CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/rans_encode.cu``."""
+    u16 [T, N], emits bool [T, N])``, time in decode order — what
+    ``rans.rans_encode`` returns.  CPU tensors take the plain version
+    (words as int32); CUDA tensors launch ``csrc/rans_encode.cu``, which
+    writes the words as int16 holding the u16 bits, the form K8
+    (``ops/compact.py``) reads and the download takes."""
     if sym.device.type == "cpu":
         return encode_scan_plain(sym, ctx, freq, cum, T, order)
     launch, result = prepare(sym, ctx, freq, cum, T, order)

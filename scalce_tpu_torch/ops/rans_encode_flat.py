@@ -7,7 +7,8 @@ and its transposes); the CUDA kernel is ``csrc/rans_encode_flat.cu``.
 The data-parallel quality path encodes a whole group of blocks as one set
 of lanes (``streams/qualities.py::group_encode``); ``rans.rans_encode``
 is the one-block case.  :func:`encode_scan_flat_plain` keeps the Pallas
-function's contract on pre-gathered (f, cum).
+function's contract on pre-gathered (f, cum), words as int32; on the card
+the words come out as int16 holding the u16 bits, K8's feed.
 """
 
 from __future__ import annotations
@@ -58,11 +59,12 @@ def encode_grids(sym: torch.Tensor, ctx: torch.Tensor, freq: torch.Tensor,
     int64, S cells per block, T | S) in ``D*S/T`` lanes of T cells, block
     d's cells against its tables ``freq[d]``, ``cum[d]`` (u32 ``[D, C,
     n_syms]``, ``cum`` the exclusive prefix sums of ``freq``).  Returns
-    ``(states u32 [D*S/T], words u16 [T, D*S/T] (int32), emits bool
-    [T, D*S/T])``, time in decode order — ``rans.rans_encode`` over the
-    stacked tables.  CPU tensors take the plain version; CUDA tensors
-    launch ``csrc/rans_encode_flat.cu`` once, on the grids as they
-    are."""
+    ``(states u32 [D*S/T], words u16 [T, D*S/T], emits bool [T,
+    D*S/T])``, time in decode order — ``rans.rans_encode`` over the
+    stacked tables.  CPU tensors take the plain version (words as
+    int32); CUDA tensors launch ``csrc/rans_encode_flat.cu`` once, on
+    the grids as they are, which writes the words as int16 holding the
+    u16 bits (what K8 reads)."""
     if sym.device.type == "cpu":
         return encode_grids_plain(sym, ctx, freq, cum, T)
     launch, result = prepare(sym, ctx, freq, cum, T)
@@ -103,7 +105,7 @@ def prepare(sym: torch.Tensor, ctx: torch.Tensor, freq: torch.Tensor,
     tab = packed_table(freq, cum)
     n_lanes = D * cells // T
     states = torch.empty(n_lanes, dtype=torch.int32, device=dev)
-    words = torch.empty((T, n_lanes), dtype=torch.int32, device=dev)
+    words = torch.empty((T, n_lanes), dtype=torch.int16, device=dev)
     emits = torch.empty((T, n_lanes), dtype=torch.bool, device=dev)
 
     def launch():

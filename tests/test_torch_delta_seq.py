@@ -164,17 +164,28 @@ def _emissions(seed, T, N):
 
 
 @pytest.mark.parametrize("T,N", [(1, 1), (1, 45), (7, 50), (7, 333),
-                                 (2048, 77)])
+                                 (2048, 77),
+                                 # the card's strip (64 lanes) and chunk
+                                 # (32 steps): below, at and past each
+                                 (31, 64), (32, 63), (33, 65), (64, 127),
+                                 (96, 129)])
 def test_compact_emissions_plain_matches_reference(T, N):
+    """The plain version on the plain encoders' int32 words and on the
+    int16 form the kernels K3 and K5 write (the u16 bits) both equal the
+    reference's ``compact_emissions``, the int16 result read as u16."""
     words, emits = _emissions(T * 1000 + N, T, N)
     want_p, want_c = ref_rans.compact_emissions(jnp.asarray(words),
                                                 jnp.asarray(emits))
-    wt, et = torch.from_numpy(words), torch.from_numpy(emits)
-    got_p, got_c = compact.compact_emissions_plain(wt, et)
-    np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
-    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
-    assert got_c[0] == T and (N == 1 or got_c[-1] == 0)
-    # the public function (also as rans.compact_emissions) on the CPU
-    for fn in (compact.compact_emissions, rans.compact_emissions):
-        p, c = fn(wt, et)
-        assert torch.equal(p, got_p) and torch.equal(c, got_c)
+    et = torch.from_numpy(emits)
+    narrow = torch.from_numpy(words.astype(np.uint16).view(np.int16))
+    for wt in (torch.from_numpy(words), narrow):
+        got_p, got_c = compact.compact_emissions_plain(wt, et)
+        assert got_p.dtype == wt.dtype
+        np.testing.assert_array_equal(
+            got_p.numpy().astype(np.int64) & 0xFFFF, np.asarray(want_p))
+        np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+        assert got_c[0] == T and (N == 1 or got_c[-1] == 0)
+        # the public function (also as rans.compact_emissions) on the CPU
+        for fn in (compact.compact_emissions, rans.compact_emissions):
+            p, c = fn(wt, et)
+            assert torch.equal(p, got_p) and torch.equal(c, got_c)

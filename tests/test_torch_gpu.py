@@ -35,6 +35,14 @@ def _equal(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
+def _narrowed(encoded):
+    """An encoder's plain ``(states, words, emits)`` with the int32 words
+    narrowed to the int16 holding their u16 bits, as the kernels write
+    them."""
+    states, words, emits = encoded
+    return states, words.to(torch.int16), emits
+
+
 @pytest.mark.parametrize("B,L,k", [(1, 12, 12), (1, 128, 12), (37, 101, 12),
                                    (1000, 128, 12), (513, 200, 15),
                                    (300, 160, 4), (64, 17, 16),
@@ -126,7 +134,8 @@ def _encode_blocks(cuda, order, D, B, L, T_target, seed, empty_lane=False):
             counts, qualities.n_contexts(order), qualities.N_SYMS)
         want = rans_encode.encode_scan_plain(sym, ctx, freq, cum, T, order)
         out = rans_encode.encode_scan(sym, ctx, freq, cum, T, order)
-        _equal(out, want)
+        assert want[1].dtype == torch.int32
+        _equal(out, _narrowed(want))
         packed, wc = rans.compact_emissions(out[1], out[2])
         if empty_lane and d == 0:
             assert int(wc[0]) == 0
@@ -227,8 +236,8 @@ def test_rans_encode_flat_kernel(cuda, T, N):
     args = (torch.from_numpy(sym).to(cuda), torch.from_numpy(ctx).to(cuda),
             freq.reshape(-1).to(cuda), cum.reshape(-1).to(cuda), n_syms, T)
     _equal(rans.rans_encode(*args),
-           rans_encode_flat.encode_scan_flat_plain(*rans.gather_tables(
-               *args)))
+           _narrowed(rans_encode_flat.encode_scan_flat_plain(
+               *rans.gather_tables(*args))))
 
 
 def _group_grids(cuda, order, D, B, L, seed):
@@ -290,7 +299,8 @@ def test_encode_grids_kernel(cuda, order, D, B, L, T_target):
     freq, cum = entropy.device_normalize(counts, C, qualities.N_SYMS)
     T = qualities.pick_T(B, L, T_target)
     _equal(rans_encode_flat.encode_grids(sym, ctx, freq, cum, T),
-           rans_encode_flat.encode_grids_plain(sym, ctx, freq, cum, T))
+           _narrowed(rans_encode_flat.encode_grids_plain(sym, ctx, freq,
+                                                         cum, T)))
     # and each block's stream is its single-block pass B's (K3)
     got = qualities.group_encode(sym, ctx, counts, T, order)
     for d in range(D):
@@ -399,29 +409,64 @@ def test_delta_seq_kernel(cuda, B, L, max_len, case, n_reads):
         assert bits[:rows].any() and not bits[rows:2 * rows].any()
 
 
-@pytest.mark.parametrize("T,N", [(1, 1), (7, 50), (2048, 333),
-                                 (2048, 16384)])
-def test_compact_kernel(cuda, T, N):
-    """K8 against its plain version narrowed to int16 (the download's
-    form): words with the top bit set, lane 0 emitting at every step,
-    lane N-1 at none, N not a multiple of 32; the zeros past each lane's
-    count written over junk."""
+def _emissions(cuda, T, N, words=None):
+    """Random int16 words (the u16 bits K3 and K5 write, the top bit set
+    in half of them) and emits ``[T, N]`` on the card, each lane at its
+    own emit rate, lane 0 emitting at every step and lane N-1 at none
+    (when N > 1)."""
     rng = np.random.default_rng(T + N)
-    words = torch.from_numpy(rng.integers(0, 1 << 16, (T, N)).astype(
-        np.int32)).to(cuda)
+    if words is None:
+        words = torch.empty((T, N), dtype=torch.int16, device=cuda)
+    words.copy_(torch.from_numpy(rng.integers(0, 1 << 16, (T, N)).astype(
+        np.uint16).view(np.int16)))
     emits = torch.from_numpy(rng.random((T, N)) < rng.random(N)[None, :])
     emits[:, 0] = True
     emits[:, -1] = N == 1
-    emits = emits.to(cuda)
-    want_p, want_c = compact.compact_emissions_plain(words, emits)
-    want = (want_p.to(torch.int16), want_c)
+    return words, emits.to(cuda)
+
+
+def _check_compact(words, emits):
+    """K8 (the wrapper, then a launch over junk-filled outputs, so every
+    byte must be written) against its plain version on the same int16
+    words and on the plain encoders' int32 form narrowed."""
+    T, N = words.shape
+    want = compact.compact_emissions_plain(words, emits)
+    wide_p, wide_c = compact.compact_emissions_plain(
+        words.to(torch.int32) & 0xFFFF, emits)
+    _equal((wide_p.to(torch.int16), wide_c), want)
     _equal(rans.compact_emissions(words, emits), want)
     launch, out = compact.prepare(words, emits)
     out[0].fill_(-1)
     out[1].fill_(-1)
     launch()
     _equal(out, want)
-    assert int(want_c[0]) == T and (N == 1 or int(want_c[-1]) == 0)
+    assert int(want[1][0]) == T and (N == 1 or int(want[1][-1]) == 0)
+
+
+@pytest.mark.parametrize("T,N", [
+    (1, 1), (7, 50), (2048, 333), (2048, 16384),
+    # the strip is 64 lanes (4 warps of 16), a chunk 32 steps: N on both
+    # sides of the strip (63, 65, 127, 129 and 72 take the scalar path,
+    # N % 16 != 0), T below, at and off the chunk, a strip with one live
+    # warp (80), and the group's width
+    (31, 64), (32, 63), (33, 65), (100, 128), (64, 127), (96, 129),
+    (33, 72), (1000, 80), (2048, 65536)])
+def test_compact_kernel(cuda, T, N):
+    """K8 against its plain version on int16 words (the download's
+    form): words with the top bit set, lane 0 emitting at every step,
+    lane N-1 at none; the zeros past each lane's count written over
+    junk."""
+    _check_compact(*_emissions(cuda, T, N))
+
+
+def test_compact_kernel_unaligned_base(cuda):
+    """Words 2 bytes past a 16-byte boundary take the scalar path even
+    at N % 16 == 0."""
+    T, N = 96, 128
+    store = torch.empty(T * N + 1, dtype=torch.int16, device=cuda)
+    words = store[1:].view(T, N)
+    assert words.data_ptr() % 16 == 2
+    _check_compact(*_emissions(cuda, T, N, words))
 
 
 def test_card_data_parallel_matches_cpu(cuda, tmp_path):

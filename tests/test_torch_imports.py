@@ -41,7 +41,8 @@ PORT_FILES = sorted(
 
 
 def _imports_of_reference(path):
-    """The lines of ``path`` that import scalce_tpu or a module of it."""
+    """The lines of ``path`` that import scalce_tpu, jax or a module of
+    either."""
     tree = ast.parse(open(os.path.join(REPO, path)).read(), path)
     bad = []
     for node in ast.walk(tree):
@@ -51,8 +52,8 @@ def _imports_of_reference(path):
             names_ = [node.module or ""]
         else:
             continue
-        if any(n == "scalce_tpu" or n.startswith("scalce_tpu.")
-               for n in names_):
+        if any(n == top or n.startswith(top + ".")
+               for n in names_ for top in ("scalce_tpu", "jax")):
             bad.append(node.lineno)
     return bad
 
@@ -67,8 +68,23 @@ def test_import_walk_sees_a_reference_import(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import scalce_tpu\nfrom scalce_tpu.io import fastq\n"
                    "def f():\n    from scalce_tpu import native\n"
-                   "import scalce_tpu_torch\n")
-    assert _imports_of_reference(str(src)) == [1, 2, 4]
+                   "import scalce_tpu_torch\nimport jax.numpy as jnp\n"
+                   "from jax import lax\nimport jaxlib\n")
+    assert sorted(_imports_of_reference(str(src))) == [1, 2, 4, 6, 7]
+
+
+@pytest.mark.parametrize("entry", ["cli", "stage_profile"])
+def test_entry_points_default_to_the_card(entry):
+    """The port's entry points run on the card unless the caller asks
+    for the CPU: the CLI's ``--device`` and ``stage_profile.profile``."""
+    if entry == "cli":
+        device = cli.build_parser().parse_args(["in.fastq"]).device
+    else:
+        import inspect
+        from scalce_tpu_torch import stage_profile
+        device = inspect.signature(stage_profile.profile).parameters[
+            "device"].default
+    assert device == "cuda"
 
 
 def test_cli_round_trip_loads_no_reference_module(tmp_path):

@@ -117,7 +117,8 @@ def test_union_of_device_spans(spans, want):
      "const*, ...)", "K7"),
     ("void (anonymous namespace)::delta_seq_place_kernel<8>(unsigned int "
      "const*, ...)", "K7"),
-    ("(anonymous namespace)::compact_kernel(int const*, ...)", "K8"),
+    ("void (anonymous namespace)::compact_kernel<true>(short const*, ...)",
+     "K8"),
     ("Memcpy DtoH (Device -> Pageable)", "pageable copies"),
     ("Memcpy HtoD (Pageable -> Device)", "pageable copies"),
     ("Memcpy HtoD (Pinned -> Device)", "pinned copies"),
