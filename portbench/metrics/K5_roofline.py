@@ -1,0 +1,8 @@
+"""K5's share of its roofline: the bytes its work needs
+(``work/K5.py``) at the card's HBM bandwidth, over its device time."""
+
+from portbench import layers
+
+
+def read(ctx):
+    return layers.roofline(ctx, "K5")
