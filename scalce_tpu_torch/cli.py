@@ -41,7 +41,8 @@ Multi-host: each host runs the compress with ``--n-hosts N --host-id h``
 with ``--merge-hosts`` (the 1-host triplet); ``python -m
 scalce_tpu_torch.parallel.multihost`` does all three over
 ``torch.distributed``.  ``--profile DIR`` writes a ``torch.profiler``
-trace of the run into DIR (``timing.profile``).
+trace of the run into DIR, and beside it the run's counters and device
+time per stage (``timing.profile``).
 """
 
 from __future__ import annotations
@@ -96,7 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
     _set_help(p, "profile",
               "write a torch.profiler trace of the run (Chrome trace "
               "JSON; host spans of every pipeline stage, and the card's "
-              "kernels and copies under --device cuda) into DIR")
+              "kernels and copies under --device cuda) into DIR, and "
+              "beside it the run's counters and device time per stage")
     return p
 
 
@@ -132,7 +134,7 @@ def run(cfg: Config, device):
     ``torch.profiler`` when ``cfg.profile_dir`` is set; returns the
     :class:`~scalce_tpu_torch.pipeline.driver.RunStats`."""
     from scalce_tpu_torch.pipeline import driver
-    with timing.profile(cfg.profile_dir, device):
+    with timing.profile(cfg.profile_dir, device, write_counters=True):
         if cfg.mode == "compress":
             return driver.compress(cfg, device)
         return driver.decompress(cfg, device)

@@ -171,7 +171,7 @@ class Config:
 
     # --- misc -----------------------------------------------------------
     stats_json: bool = False           # emit machine-readable stats
-    profile_dir: Optional[str] = None  # jax.profiler trace output dir
+    profile_dir: Optional[str] = None  # torch.profiler trace output dir
     verbose: bool = False
 
     def __post_init__(self) -> None:

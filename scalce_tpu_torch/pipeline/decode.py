@@ -130,10 +130,11 @@ class BlockDecoder:
             with stage("delta decode (device)"):
                 parsed_list = [(f.wait()["codes"], *pr[1:])
                                for f, pr in zip(seq_dev, parsed_list)]
-        with stage("quality decode"):
-            if self.qual_on_device:
+        if self.qual_on_device:
+            with stage("quality decode"):
                 quals = qualities.decode_batch_fetch(dev)
-            else:
+        else:
+            with stage("quality decode (host)"):
                 quals = [self.decode_qual_single(e, pr[1])
                          for e, pr in zip(dev, parsed_list)]
         with stage("_finish"):

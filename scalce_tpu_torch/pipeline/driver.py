@@ -37,6 +37,12 @@ on the main thread, and the ordered writes on a writer thread.  Bytes
 never depend on ``-T``.  An exception on any thread raises out of
 :func:`compress` or :func:`decompress` once the threads it started have
 stopped.
+
+Under ``--profile`` the main thread's blocking waits are stages of their
+own: ``wait input`` (the compress's next uploaded block, or parsed block
+under host core), ``wait assemble`` (the oldest pending host half),
+``wait parse`` and ``wait finish`` (the decompress's oldest payload
+parse, and the oldest group's finish and render).
 """
 
 from __future__ import annotations
@@ -55,7 +61,7 @@ from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
-from scalce_tpu_torch import container
+from scalce_tpu_torch import container, timing
 from scalce_tpu_torch.config import Config, resolve_read_len
 from scalce_tpu_torch.io import fastq
 from scalce_tpu_torch.models import lossy
@@ -159,11 +165,18 @@ def _run_pipelined(items: Iterator, dispatch: Callable, assemble: Callable,
             pending.append(pool.submit(timed, "assemble", assemble, item,
                                        dispatched))
             while len(pending) >= workers + 2:
-                emit(pending.popleft().result())
+                emit(_oldest(pending))
         while pending:
-            emit(pending.popleft().result())
+            emit(_oldest(pending))
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _oldest(pending: collections.deque):
+    """The result of the oldest pending host half, waited for as the
+    ``wait assemble`` stage."""
+    with stage("wait assemble"):
+        return pending.popleft().result()
 
 
 def _first(item):
@@ -185,11 +198,13 @@ def _parsed(blocks: Iterator, keep: Callable[[int], bool]) -> Iterator:
                 yield item
 
 
-def _staged(groups: Iterator, upload: Optional[Callable]) -> Iterator:
+def _staged(groups: Iterator, upload: Optional[Callable],
+            wait: Optional[str] = None) -> Iterator:
     """Each group with its upload (None when ``upload`` is: host core
     sends nothing), the parse one prefetch thread ahead (stopped when
-    this generator stops)."""
-    with contextlib.closing(_prefetch(groups)) as parsed:
+    this generator stops); ``wait``: the stage name of the wait for each
+    parsed group."""
+    with contextlib.closing(_prefetch(groups, wait=wait)) as parsed:
         for group in parsed:
             yield group, None if upload is None else upload(group)
 
@@ -295,6 +310,7 @@ def compress(cfg: Config, device) -> RunStats:
     host's share of the blocks into its own triplet (see the module
     docstring)."""
     t0 = time.monotonic()
+    timing.begin("compress")
     for p in cfg.inputs:
         if p != "-" and not os.path.exists(p):
             raise FileNotFoundError(f"input FASTQ not found: {p}")
@@ -344,11 +360,15 @@ def compress(cfg: Config, device) -> RunStats:
     groups = _groups(_parsed(blocks, lambda bid: owns_block(
         bid, cfg.host_id, cfg.n_hosts) and bid not in done), D)
     # host core and long reads: no upload stage, the parse's prefetch
-    # alone (the reference's host-core branch)
-    staged = _staged(groups, upload)
+    # alone (the reference's host-core branch); this thread's wait for
+    # its next input is ``wait input``
+    if upload is None:
+        items = _staged(groups, None, wait="wait input")
+    else:
+        items = _prefetch(_staged(groups, upload), depth=2,
+                          wait="wait input")
     try:
-        with contextlib.closing(staged if upload is None else _prefetch(
-                staged, depth=2)) as items:
+        with contextlib.closing(items):
             _run_pipelined(items, lambda it: dispatch(*it),
                            assemble_recycle, emit, cfg.threads,
                            stats.stage_s)
@@ -380,6 +400,7 @@ def decompress(cfg: Config, device) -> RunStats:
     record i of one pairing with record i of the other.  Each mate has
     its own decoder."""
     t0 = time.monotonic()
+    timing.begin("decompress")
     (path,) = cfg.inputs
     reader = container.TripletReader(path)
     if reader.meta.get("paired"):
@@ -458,7 +479,8 @@ def _run_decode_pipeline(items: Iterator, decs: List[BlockDecoder],
 
     def emit(futs):
         for c, f in futs:
-            blocks, bufs = f.result()
+            with stage("wait finish"):
+                blocks, bufs = f.result()
             for b, buf in zip(blocks, bufs):
                 if buf is not None and len(buf):
                     writer.write(outs[c], buf)
@@ -498,19 +520,23 @@ def _run_decode_pipeline(items: Iterator, decs: List[BlockDecoder],
     def parse_item(ptuple):
         return tuple(decs[c].parse_block(ptuple[c]) for c in range(C))
 
+    def parsed():
+        # the oldest block's payloads and parse
+        pt, f = parse_pending.popleft()
+        with stage("wait parse"):
+            return pt, f.result()
+
     try:
         group: List = []
         for ptuple in items:
             parse_pending.append((ptuple, pool.submit(parse_item, ptuple)))
             while len(parse_pending) >= max_parse:
-                pt, f = parse_pending.popleft()
-                group.append((pt, f.result()))
+                group.append(parsed())
                 if len(group) == DECODE_GROUP:
                     dispatch(group)
                     group = []
         while parse_pending:
-            pt, f = parse_pending.popleft()
-            group.append((pt, f.result()))
+            group.append(parsed())
             if len(group) == DECODE_GROUP:
                 dispatch(group)
                 group = []

@@ -46,7 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from scalce_tpu_torch import container, native
+from scalce_tpu_torch import container, native, timing
 from scalce_tpu_torch.config import Config
 from scalce_tpu_torch.io.fastq import ReadBlock
 from scalce_tpu_torch.models import core_dict
@@ -801,6 +801,7 @@ class BlockEncoder:
         (None: the host codec encodes them here)."""
         cfg = self.cfg
         B, L = block.seq.shape
+        timing.count("literals", delta_np["n_lits"])
         if enc_q is None:
             with stage("quality encode (host)"):
                 enc_q = qualities_host.encode_host(

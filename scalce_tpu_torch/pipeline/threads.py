@@ -8,20 +8,26 @@ the original).  ``_prefetch`` is the reference's with two additions, so
 that a consumer that stops early stops the whole chain of prefetches at
 once, even while its exception (and so the frames that reference the
 iterators) is still alive: closing the generator joins its thread, and
-the thread closes its iterator when it stops."""
+the thread closes its iterator when it stops.  A consumer may name its
+wait for each item, which then is a :func:`~scalce_tpu_torch.timing.stage`."""
 
 from __future__ import annotations
 
+import contextlib
 import queue as _queue
 import threading
-from typing import Iterator, List
+from typing import Iterator, List, Optional
+
+from scalce_tpu_torch.timing import stage
 
 
-def _prefetch(it: Iterator, depth: int = 3) -> Iterator:
+def _prefetch(it: Iterator, depth: int = 3,
+              wait: Optional[str] = None) -> Iterator:
     """Run an iterator in a background thread with a bounded queue,
     ``depth`` items ahead of the consumer.  The thread closes ``it`` (if
     it has ``close``) when it stops; closing this generator stops the
-    thread and waits for it."""
+    thread and waits for it.  ``wait``: the stage name of the consumer's
+    wait for each item (None: not a stage)."""
     q: _queue.Queue = _queue.Queue(maxsize=depth)
     _END = object()
     err: List[BaseException] = []
@@ -64,7 +70,8 @@ def _prefetch(it: Iterator, depth: int = 3) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            with stage(wait) if wait else contextlib.nullcontext():
+                item = q.get()
             if item is _END:
                 if err:
                     raise err[0]

@@ -1,8 +1,7 @@
-"""Where the time goes: per-stage wall times of one compress and one
-keep-order decompress through the port's drivers at ``-T 1``, their
-walls and peak device memory at ``-T 1``, ``-T 4`` and Config's default
-threads, and the device's busy share under ``torch.profiler`` at ``-T 1``
-and ``-T 4``, for a single-end file, a pair (``-r``), the single-end
+"""Where the time goes: the walls and peak device memory of one compress
+and one keep-order decompress through the port's drivers at ``-T 1``,
+``-T 4`` and Config's default threads, and the device's busy share
+under ``torch.profiler`` at ``-T 1`` and ``-T 4``, for a single-end file, a pair (``-r``), the single-end
 file lossy (``-p 30``), the single-end file through
 ``--data-parallel`` (one group per block on one card), the single-end
 file under the bare command's host qualities with the device, host
@@ -22,9 +21,7 @@ parameters), under the slice's Config (``threads=1``); :func:`profile`
 also takes fewer reads and the CPU.  Runs, per case and in order: a
 warm-up (first-use costs: library load, CUDA context); an untimed run
 whose wall clock is the end-to-end number, then one at ``-T 4`` and one
-at the default; a run at ``-T 1`` with every stage synchronized and
-timed (:mod:`scalce_tpu_torch.timing`: per-stage seconds are defined at
-``-T 1`` only); on CUDA, a run under ``torch.profiler`` at ``-T 1`` and
+at the default; on CUDA, a run under ``torch.profiler`` at ``-T 1`` and
 one at ``-T 4``, whose device events give the busy time (the union of
 their intervals) and the device time per kernel and per kind of copy
 (to or from pageable or page-locked host memory).  Each decompress must
@@ -38,7 +35,6 @@ every visible card against one card (:func:`dp_cards`).
 
 from __future__ import annotations
 
-import contextlib
 import glob
 import json
 import os
@@ -51,7 +47,6 @@ import torch
 
 from scalce_tpu_torch.config import Config
 from scalce_tpu_torch.utils.synth import synth_fastq, synth_pair
-from scalce_tpu_torch import timing
 from scalce_tpu_torch.device import resolve_device
 from scalce_tpu_torch.pipeline import driver
 
@@ -95,13 +90,11 @@ def _check(got: bytes, want: bytes, lossy: bool) -> None:
 
 
 def _run(tmp: str, case: str, srcs: Sequence[str], datas: Sequence[bytes],
-         block_reads: int, device, staged: bool = False,
+         block_reads: int, device,
          threads: Optional[int] = 1) -> Dict[str, Dict]:
     """One compress and one keep-order decompress of ``case`` on
-    ``threads`` workers (None: Config's default): each one's wall seconds,
-    on CUDA its peak device memory, and, when ``staged``, its seconds per
-    stage (the rest of the wall -- setup, container open and close, less
-    the parse's overlap with the other stages -- is ``other``)."""
+    ``threads`` workers (None: Config's default): each one's wall seconds
+    and, on CUDA, its peak device memory."""
     extra = dict(CASES[case])
     dextra = extra.pop("decompress", {})
     out = os.path.join(tmp, case.replace(" ", "_"))
@@ -119,16 +112,10 @@ def _run(tmp: str, case: str, srcs: Sequence[str], datas: Sequence[bytes],
     for name, cfg in cfgs.items():
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
-        with timing.collect(device) if staged else \
-                contextlib.nullcontext({}) as stages:
-            t0 = time.perf_counter()
-            getattr(driver, name)(cfg, device)
-            wall = time.perf_counter() - t0
-        stages = dict(stages)
-        if staged:
-            stages["other"] = wall - sum(stages.values())
-        result[name] = {"wall_s": wall, "stages_s": stages,
-                        "threads": cfg.threads}
+        t0 = time.perf_counter()
+        getattr(driver, name)(cfg, device)
+        wall = time.perf_counter() - t0
+        result[name] = {"wall_s": wall, "threads": cfg.threads}
         if device.type == "cuda":
             result[name]["peak_bytes"] = torch.cuda.max_memory_allocated(
                 device)
@@ -289,7 +276,7 @@ def dp_cards(reads: int = 1_148_576, turns: int = 2) -> Dict:
 
 
 def _report(case: str, res: Dict, card: str) -> None:
-    """Print one case's walls, stage tables and device busy share."""
+    """Print one case's walls and device busy share."""
     mb = res["input_bytes"] / 1e6
     for name in ("compress", "decompress"):
         walls = []
@@ -300,12 +287,6 @@ def _report(case: str, res: Dict, card: str) -> None:
             walls.append(f"-T {r['threads']} {r['wall_s']:.3f} s = "
                          f"{mb / r['wall_s']:.2f} MB/s{peak}")
         print(f"{case} {name}: {'; '.join(walls)} ({card})")
-        staged = res["staged"][name]
-        print(f"  staged run {staged['wall_s']:.3f} s:")
-        for st, s in sorted(staged["stages_s"].items(),
-                            key=lambda kv: -kv[1]):
-            print(f"    {st:<18} {s:8.3f} s "
-                  f"{100 * s / staged['wall_s']:6.1f}%")
     for key, T in (("profiled", "untimed"), ("profiled_T4", "untimed_T4")):
         prof = res.get(key)
         if prof is not None:
@@ -328,8 +309,8 @@ def _report(case: str, res: Dict, card: str) -> None:
 
 def profile(device="cuda", reads: int = 1_148_576,
             block_reads: int = SLICE["block_reads"]) -> Dict:
-    """Run the four runs above for each case, print the tables, return
-    the numbers."""
+    """Run the runs above for each case, print the walls and device
+    time, return the numbers."""
     device = resolve_device(device)
     card = "cpu"
     if device.type == "cuda":       # name and power limit
@@ -359,7 +340,6 @@ def profile(device="cuda", reads: int = 1_148_576,
             res["untimed"] = _run(*args)
             res["untimed_T4"] = _run(*args, threads=4)
             res["untimed_Tdef"] = _run(*args, threads=None)
-            res["staged"] = _run(*args, staged=True)
             if device.type == "cuda":
                 res["profiled"] = _profiled(*args)
                 res["profiled_T4"] = _profiled(*args, threads=4)

@@ -1,87 +1,173 @@
-"""Per-stage wall times of the compress and decompress paths, and the
-``--profile`` trace.
+"""The pipeline's stage spans, wait spans and counters, recorded under
+``--profile`` (:func:`profile`).
 
-The pipeline wraps each stage in :func:`stage`.  Off (the default) a stage
-costs two global lookups.  Inside :func:`collect` each stage synchronizes
-the device on entry and on exit, so its seconds include the device work it
-queued and no other stage's, and the seconds of each stage are added
-under a lock (stages run on the driver's threads).  Stages do not nest
-within a thread.  Per-stage seconds are defined at ``-T 1`` only: with
-more assembly workers, stages on different threads overlap and their
-synchronizations wait for each other's device work.  Even at ``-T 1`` the
-parse (and the upload) run on prefetch threads beside the main thread,
-so the stages' sum may exceed the wall.
-
-Inside :func:`profile` each stage is also a
+The pipeline wraps each stage, and each blocking wait of one thread on
+another (``wait ...``), in :func:`stage`, and counts what crosses the
+link and what the delta leaves as literals with :func:`count`.  Off (the
+default) a stage or a count costs one global check and adds no clock,
+lock, thread or device work.  Inside :func:`profile` each stage is a
 ``torch.profiler.record_function`` span of its name, on the thread that
-runs it (the profile records every thread), and adds no
-synchronization.
+runs it (the profile records every thread); stages may nest within a
+thread.  Counts add to the current driver call's counters (``compress``
+or ``decompress``, named by :func:`begin`).  When the profile stops, each
+kernel, copy and memset the card ran is given to the innermost stage
+around the host call that queued it (:func:`device_time_by_stage`), and
+:func:`counters` returns the counters and that device time.
 """
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import itertools
+import json
 import os
 import threading
-import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterable, Iterator, Mapping, Optional, Tuple
 
 import torch
 
-#: (device, seconds per stage, lock) while :func:`collect` is active
-_active = None
 #: True while :func:`profile` records
 _profiling = False
 #: numbers the traces that one process writes
 _traces = itertools.count()
+#: while profiling: the stage names used, the driver call that counts
+#: add to, and the counters per call (under ``_lock``)
+_names: set = set()
+_call = "compress"
+_counts: Dict[str, Dict[str, int]] = {}
+_lock = threading.Lock()
+#: what the last profile recorded (:func:`counters`)
+_last: Dict = {}
 
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+#: the device time of launches outside every stage
+NO_STAGE = "no stage"
 
 
 @contextlib.contextmanager
 def stage(name: str) -> Iterator[None]:
-    with (torch.profiler.record_function(name) if _profiling
-          else contextlib.nullcontext()):
-        if _active is None:
-            yield
-            return
-        device, seconds, lock = _active
-        _sync(device)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            _sync(device)
-            dt = time.perf_counter() - t0
-            with lock:
-                seconds[name] += dt
+    """The block as the span ``name`` on this thread, inside
+    :func:`profile`."""
+    if not _profiling:
+        yield
+        return
+    _names.add(name)
+    with torch.profiler.record_function(name):
+        yield
+
+
+def recording() -> bool:
+    """Whether :func:`profile` records (for a count that costs work to
+    compute)."""
+    return _profiling
+
+
+def begin(call: str) -> None:
+    """Name the driver call (``compress`` or ``decompress``) that later
+    counts add to."""
+    global _call
+    _call = call
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the current call's counter ``name`` (nothing outside
+    :func:`profile`)."""
+    if not _profiling:
+        return
+    with _lock:
+        c = _counts.setdefault(_call, {})
+        c[name] = c.get(name, 0) + int(n)
+
+
+def counters() -> Dict:
+    """The last profile's counters, ``{call: {name: n}}``, and under
+    ``"device_us"`` the card's microseconds per stage
+    (:func:`device_time_by_stage`; empty without a card)."""
+    return _last
+
+
+def device_time_by_stage(
+        device: Iterable[Tuple[int, float]],
+        launches: Mapping[int, Tuple[int, float]],
+        spans: Iterable[Tuple[str, int, float, float]]) -> Dict[str, float]:
+    """The device time of each stage.
+
+    ``device``: ``(correlation, duration)`` of each device event;
+    ``launches``: correlation -> ``(thread, time)`` of the host call that
+    queued it; ``spans``: ``(name, thread, start, end)`` of the stages,
+    properly nested within a thread.  Each device event's duration goes
+    to the innermost span on its launch's thread that contains the
+    launch, or to :data:`NO_STAGE` (also when its launch is unknown), so
+    the sums add up to the events' total."""
+    per_thread: Dict[int, list] = collections.defaultdict(list)
+    for name, tid, s, e in spans:
+        per_thread[tid].append((s, -e, name))
+    # per thread: the spans by start (outer first at equal starts), and
+    # the index of the span around each (-1: none)
+    threads = {}
+    for tid, v in per_thread.items():
+        v.sort()
+        parent, open_ = [], []
+        for s, neg_e, _ in v:
+            while open_ and -v[open_[-1]][1] < s:
+                open_.pop()
+            parent.append(open_[-1] if open_ else -1)
+            open_.append(len(parent) - 1)
+        threads[tid] = ([s for s, _, _ in v], v, parent)
+
+    def innermost(tid: int, t: float) -> str:
+        if tid not in threads:
+            return NO_STAGE
+        starts, v, parent = threads[tid]
+        # the last span to start at or before t; if it has ended by t, a
+        # span that runs at t and started before it holds it: climb
+        i = bisect.bisect_right(starts, t) - 1
+        while i >= 0 and -v[i][1] < t:
+            i = parent[i]
+        return v[i][2] if i >= 0 else NO_STAGE
+
+    out: Dict[str, float] = collections.defaultdict(float)
+    for corr, dur in device:
+        at = launches.get(corr)
+        out[NO_STAGE if at is None else innermost(*at)] += dur
+    return dict(out)
+
+
+def _device_us(prof, names) -> Dict[str, float]:
+    """:func:`device_time_by_stage` over the stopped profile's events, in
+    microseconds.  Device events are the card's kernels, copies and
+    memsets (not the card-side copies of the host's spans); a launch is
+    the CUDA runtime or driver call (``cuda*``, ``cu*``) that shares the
+    event's correlation id (the host's ops number theirs apart); thread
+    ids are the profiler's own, the same for calls and spans."""
+    device, launches, spans = [], {}, []
+    cpu = torch.autograd.DeviceType.CPU
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cpu:
+            if not e.is_user_annotation():
+                device.append((e.correlation_id(), e.duration_ns() / 1e3))
+        elif e.is_user_annotation():
+            if e.name() in names:
+                spans.append((e.name(), e.start_thread_id(), e.start_ns(),
+                              e.start_ns() + e.duration_ns()))
+        elif e.name().startswith("cu"):
+            launches[e.correlation_id()] = (e.start_thread_id(),
+                                             e.start_ns())
+    return device_time_by_stage(device, launches, spans)
 
 
 @contextlib.contextmanager
-def collect(device) -> Iterator[Dict[str, float]]:
-    """Record every stage run inside the block into the yielded dict."""
-    global _active
-    seconds: Dict[str, float] = collections.defaultdict(float)
-    _active = (torch.device(device), seconds, threading.Lock())
-    try:
-        yield seconds
-    finally:
-        _active = None
-
-
-@contextlib.contextmanager
-def profile(trace_dir: Optional[str], device) -> Iterator[None]:
+def profile(trace_dir: Optional[str], device,
+            write_counters: bool = False) -> Iterator[None]:
     """Run the block under ``torch.profiler`` (host activity, and the
     card's kernels and copies when ``device`` is a CUDA device) and write
     its Chrome trace to ``trace_dir/scalce_tpu_torch.<pid>.<n>.trace.json``
     (``n`` counts this process's traces), also when the block raises;
-    nothing when ``trace_dir`` is None."""
-    global _profiling
+    with ``write_counters`` (the CLI's ``--profile``), :func:`counters`
+    beside it as ``scalce_tpu_torch.<pid>.<n>.counters.json``; nothing
+    when ``trace_dir`` is None."""
+    global _profiling, _last
     if trace_dir is None:
         yield
         return
@@ -97,6 +183,8 @@ def profile(trace_dir: Optional[str], device) -> Iterator[None]:
     prof = torch.profiler.profile(
         activities=activities,
         experimental_config=_ExperimentalConfig(profile_all_threads=True))
+    _names.clear()
+    _counts.clear()
     prof.start()
     _profiling = True
     try:
@@ -104,6 +192,11 @@ def profile(trace_dir: Optional[str], device) -> Iterator[None]:
     finally:
         _profiling = False
         prof.stop()
-        prof.export_chrome_trace(os.path.join(
-            trace_dir,
-            f"scalce_tpu_torch.{os.getpid()}.{next(_traces)}.trace.json"))
+        _last = {**{c: dict(v) for c, v in _counts.items()},
+                 "device_us": _device_us(prof, set(_names))}
+        base = os.path.join(
+            trace_dir, f"scalce_tpu_torch.{os.getpid()}.{next(_traces)}")
+        prof.export_chrome_trace(base + ".trace.json")
+        if write_counters:
+            with open(base + ".counters.json", "w") as f:
+                json.dump(_last, f, indent=1, sort_keys=True)

@@ -28,6 +28,10 @@ upload prefetch, the pending downloads and the host arrays the
 assembly workers still read.  A failed pin or copy raises; nothing
 falls back to pageable memory.  On the CPU both directions hand over
 the memory as it is.
+
+Under ``--profile`` the link counts the bytes it hands over each way
+(``h2d_bytes``, ``d2h_bytes``), and each wait for a download is the
+stage ``wait download``.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from typing import Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
+from scalce_tpu_torch import timing
 from scalce_tpu_torch.convert import host_form
 
 #: downloads in flight per device before the next one waits
@@ -77,8 +82,9 @@ class Fetched:
         self.event = event
 
     def wait(self) -> Dict[str, np.ndarray]:
-        if self.event is not None:
-            self.event.synchronize()
+        with timing.stage("wait download"):
+            if self.event is not None:
+                self.event.synchronize()
         return self._arrays
 
 
@@ -98,6 +104,8 @@ class Link:
         int32, u32 -> int64, as :func:`convert.from_reference`)."""
         host = {name: torch.from_numpy(host_form(a))
                 for name, a in arrays.items()}
+        if timing.recording():
+            timing.count("h2d_bytes", _nbytes(host.values()))
         out = Staged()
         out.host = {}
         if self.h2d is None:
@@ -122,6 +130,9 @@ class Link:
         returns one :class:`Fetched` per group, sharing one event."""
         groups = [{name: t.detach().contiguous() for name, t in g.items()}
                   for g in groups]
+        if timing.recording():
+            timing.count("d2h_bytes",
+                         sum(_nbytes(g.values()) for g in groups))
         if self.d2h is None:
             return [Fetched({name: t.numpy() for name, t in g.items()})
                     for g in groups]
@@ -145,5 +156,10 @@ class Link:
             oldest = self._inflight.popleft() \
                 if len(self._inflight) > DEPTH else None
         if oldest is not None:
-            oldest.synchronize()
+            with timing.stage("wait download"):
+                oldest.synchronize()
         return [Fetched(arrays, event) for arrays in out]
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)

@@ -1,81 +1,45 @@
-"""scalce_tpu_torch's stage timing: off it records nothing; on it records
-every stage of the compress and decompress paths, and the profile script
-accounts for each run's wall clock.  ``--profile DIR`` writes a
-torch.profiler trace that names the stages, on every thread that runs
-them, and changes no byte of the triplet."""
+"""scalce_tpu_torch's tracing: off, stages and counts record nothing;
+under ``--profile DIR`` a torch.profiler trace names every stage and
+every wait of the compress and decompress paths, on every thread that
+runs them, the link's bytes and the delta's literals are counted, the
+card's time is given to the stage that queued it, and no byte of the
+triplet changes.  The profile script accounts for each run's walls."""
 
 import glob
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
-from scalce_tpu_torch import cli, stage_profile, timing
+from scalce_tpu_torch import cli, container, stage_profile, timing
+from scalce_tpu_torch.config import Config
+from scalce_tpu_torch.pipeline import driver
+from scalce_tpu_torch.streams import seqs
+from scalce_tpu_torch.transfer import Link
 from scalce_tpu_torch.utils.synth import synth_fastq
 
 # xdist runs test files side by side on the CPU: one intra-op thread
 # per worker keeps torch's thread pools from oversubscribing the cores
 torch.set_num_threads(1)
 
-COMPRESS_STAGES = {"parse FASTQ", "upload", "stage A", "stage B", "pass B",
-                   "quality payload", "download", "seqs.payload",
-                   "names payload", "write", "other"}
-DECOMPRESS_STAGES = {"seqs.parse", "qualities.parse", "quality decode",
-                     "_finish", "render FASTQ", "write", "other"}
-
-
-def test_stage_records_only_inside_collect():
-    with timing.stage("outside"):
-        pass
-    with timing.collect("cpu") as seconds:
-        for _ in range(3):
-            with timing.stage("a"):
-                pass
-        with pytest.raises(ValueError):
-            with timing.stage("b"):
-                raise ValueError
-    with timing.stage("after"):
-        pass
-    assert set(seconds) == {"a", "b"}
-    assert all(s >= 0 for s in seconds.values())
+#: the compress's and the decompress's waits (host core: no link)
+COMPRESS_WAITS = {"wait input", "wait assemble", "wait download"}
+DECOMPRESS_WAITS = {"wait parse", "wait finish"}
 
 
 def test_stage_profile_cpu(capsys):
     result = stage_profile.profile("cpu", reads=1500, block_reads=1024)
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
         == result
-    bare = COMPRESS_STAGES - {"pass B"} | {"quality encode (host)"}
-    compress = {"single": COMPRESS_STAGES,
-                "lossy": COMPRESS_STAGES | {"lossy preamble"},
-                "paired": COMPRESS_STAGES | {"stage A (mate 2)",
-                                             "stage B (mate 2)"},
-                "dp": COMPRESS_STAGES - {"stage A", "stage B"}
-                | {"stage A+B"},
-                "bare": bare,
-                "host delta": bare - {"stage B"} | {"host delta"},
-                "host core": bare - {"upload", "stage A", "stage B",
-                                     "download"} | {"host core",
-                                                    "host delta"},
-                "delta device": COMPRESS_STAGES}
-    decompress = {"delta device": DECOMPRESS_STAGES
-                  | {"delta decode (device)"}}
-    assert set(result["cases"]) == set(compress)
+    assert set(result["cases"]) == set(stage_profile.CASES)
     assert "dp_functions_ms" not in result       # timed on a card only
     for case, res in result["cases"].items():
         assert res["input_bytes"] > 0 and "profiled" not in res
-        for name, want in (("compress", compress[case]),
-                           ("decompress", decompress.get(
-                               case, DECOMPRESS_STAGES))):
-            run = res["staged"][name]
-            assert set(run["stages_s"]) == want
-            assert all(s >= 0 for k, s in run["stages_s"].items()
-                       if k != "other")
-            assert sum(run["stages_s"].values()) \
-                == pytest.approx(run["wall_s"])
+        for name in ("compress", "decompress"):
             for run in ("untimed", "untimed_T4", "untimed_Tdef"):
                 assert res[run][name]["wall_s"] > 0
-                assert res[run][name]["stages_s"] == {}
     assert result["cases"]["paired"]["input_bytes"] \
         > result["cases"]["single"]["input_bytes"]
 
@@ -156,14 +120,16 @@ def _triplet(prefix):
 @pytest.mark.parametrize("flags,stages", [
     ([], {"parse FASTQ", "upload", "stage A", "stage B", "download",
           "quality encode (host)", "quality payload", "seqs.payload",
-          "names payload", "write"}),
+          "names payload", "write"} | COMPRESS_WAITS),
     (["--core-placement", "host"], {"parse FASTQ", "host core",
                                     "host delta", "quality encode (host)",
-                                    "seqs.payload", "write"})])
+                                    "seqs.payload", "write"}
+     | COMPRESS_WAITS - {"wait download"})])
 def test_profile_trace_names_the_stages(tmp_path, flags, stages):
     """The CLI's --profile on the CPU: one Chrome trace per run whose
-    spans name the compress's stages (the assembly workers' too) and
-    the decompress's; the triplet equals the one without --profile."""
+    spans name the compress's stages and waits (the assembly workers'
+    too) and the decompress's; the triplet equals the one without
+    --profile."""
     src = str(tmp_path / "in.fastq")
     with open(src, "wb") as f:
         f.write(synth_fastq(3000, 100, seed=3, var_len=True, n_rate=0.01))
@@ -181,8 +147,9 @@ def test_profile_trace_names_the_stages(tmp_path, flags, stages):
     assert cli.main(["--device", "cpu", "-d", "--keep-order", "-o",
                      str(tmp_path / "d"), "--profile", dprof,
                      str(tmp_path / "p.00.scalcen")]) == 0
-    assert {"seqs.parse", "qualities.parse", "_finish",
-            "render FASTQ", "write"} <= set(_spans(dprof))
+    assert {"seqs.parse", "qualities.parse", "quality decode (host)",
+            "_finish", "render FASTQ", "write"} | DECOMPRESS_WAITS \
+        <= set(_spans(dprof))
     with open(tmp_path / "d.fastq", "rb") as a, open(src, "rb") as b:
         assert a.read() == b.read()
 
@@ -198,3 +165,154 @@ def test_profile_off_writes_nothing(tmp_path):
                 raise ValueError
     assert not timing._profiling and set(_spans(str(tmp_path / "t"))) \
         == {"b"}
+
+
+def test_counters_only_inside_profile(tmp_path):
+    """Counts outside a profile record nothing; a profile's counters are
+    the last profile's, written beside its trace only when asked."""
+    with timing.profile(str(tmp_path / "a"), "cpu"):
+        timing.begin("compress")
+        timing.count("x", 2)
+        timing.count("x", 3)
+        with timing.stage("s"):
+            timing.begin("decompress")
+            timing.count("y", 1)
+    want = {"compress": {"x": 5}, "decompress": {"y": 1}, "device_us": {}}
+    assert timing.counters() == want
+    assert not timing.recording()
+    timing.count("x", 7)
+    with timing.profile(None, "cpu"):
+        timing.count("x", 11)
+    assert timing.counters() == want
+    assert not glob.glob(str(tmp_path / "a" / "*.counters.json"))
+    with timing.profile(str(tmp_path / "b"), "cpu", write_counters=True):
+        timing.begin("compress")
+        timing.count("z", 4)
+    (path,) = glob.glob(str(tmp_path / "b" / "*.counters.json"))
+    with open(path) as f:
+        assert json.load(f) == timing.counters() == {
+            "compress": {"z": 4}, "device_us": {}}
+    src = str(tmp_path / "in.fastq")
+    with open(src, "wb") as f:
+        f.write(synth_fastq(500, 100, seed=4))
+    assert cli.main(["--device", "cpu", "-c", "gz", "-o",
+                     str(tmp_path / "p"), src]) == 0
+    assert timing.counters()["compress"] == {"z": 4}
+    assert glob.glob(str(tmp_path / "**" / "*.counters.json"),
+                     recursive=True) == [path]
+
+
+@pytest.mark.parametrize("threads", [1, 3])
+def test_link_and_literal_counters(tmp_path, monkeypatch, threads):
+    """Under a profile a compress counts the bytes of every array it
+    hands the link each way, and the literals its triplet holds."""
+    handed = {"h2d_bytes": 0, "d2h_bytes": 0}
+    up, down = Link.upload, Link.download
+
+    def upload(self, arrays):
+        # at the widths they cross in: u16 as int32, u32 as int64
+        handed["h2d_bytes"] += sum(
+            a.size * {"uint16": 4, "uint32": 8}.get(a.dtype.name, a.itemsize)
+            for a in map(np.asarray, arrays.values()))
+        return up(self, arrays)
+
+    def download(self, *groups):
+        handed["d2h_bytes"] += sum(t.numel() * t.element_size()
+                                   for g in groups for t in g.values())
+        return down(self, *groups)
+
+    monkeypatch.setattr(Link, "upload", upload)
+    monkeypatch.setattr(Link, "download", download)
+    src = str(tmp_path / "in.fastq")
+    with open(src, "wb") as f:
+        f.write(synth_fastq(3000, 100, seed=5, var_len=True, n_rate=0.01,
+                            genome_len=20_000))
+    out = str(tmp_path / "p")
+    cfg = Config(inputs=(src,), output=out, block_reads=1024, backend="gz",
+                 threads=threads, qual_on_device=False,
+                 qual_context_order=0)
+    with timing.profile(str(tmp_path / "t"), "cpu"):
+        driver.compress(cfg, "cpu")
+    got = timing.counters()["compress"]
+    reader = container.TripletReader(out + ".00.scalcen")
+    B, L = (int(reader.meta[k]) for k in ("block_reads", "max_read_len"))
+    lits = sum(seqs.parse_fields(p["r"], B, L)[0]["lits"].size
+               for _, p in reader.iter_blocks())
+    assert handed["h2d_bytes"] > 0 and handed["d2h_bytes"] > 0 and lits > 0
+    assert got == {**handed, "literals": lits}
+
+
+#: (spans (name, thread, start, end), launches {correlation: (thread,
+#: time)}, device events (correlation, duration), the stages' sums)
+ATTRIBUTION = {
+    "nested": (
+        [("A", 1, 0, 100), ("B", 1, 10, 50), ("C", 1, 20, 30),
+         ("B", 1, 60, 70)],
+        {1: (1, 5), 2: (1, 15), 3: (1, 25), 4: (1, 40), 5: (1, 55),
+         6: (1, 65), 7: (1, 100)},
+        [(1, 1.0), (2, 2.0), (3, 4.0), (4, 8.0), (5, 16.0), (6, 32.0),
+         (7, 64.0)],
+        {"A": 1.0 + 16.0 + 64.0, "B": 2.0 + 8.0 + 32.0, "C": 4.0}),
+    "two threads": (
+        [("A", 1, 0, 100), ("B", 2, 0, 100), ("C", 2, 40, 60)],
+        {1: (1, 50), 2: (2, 50), 3: (2, 70), 4: (3, 50)},
+        [(1, 1.0), (2, 2.0), (3, 4.0), (4, 8.0)],
+        {"A": 1.0, "C": 2.0, "B": 4.0, timing.NO_STAGE: 8.0}),
+    "outside every span": (
+        [("A", 1, 10, 20), ("B", 1, 30, 40), ("C", 1, 32, 34)],
+        {1: (1, 5), 2: (1, 25), 3: (1, 36), 4: (1, 45)},
+        [(1, 1.0), (2, 2.0), (3, 4.0), (4, 8.0), (4, 16.0)],
+        {timing.NO_STAGE: 1.0 + 2.0 + 8.0 + 16.0, "B": 4.0}),
+    "unknown launch": (
+        [("A", 1, 0, 100)],
+        {1: (1, 50)},
+        [(1, 1.0), (2, 2.0), (3, 4.0)],
+        {"A": 1.0, timing.NO_STAGE: 6.0}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ATTRIBUTION))
+def test_device_time_by_stage(case):
+    """Each device event's time goes once to the innermost stage around
+    its launch on the launch's thread, else to no stage: the sums add
+    up to the events' total."""
+    spans, launches, device, want = ATTRIBUTION[case]
+    got = timing.device_time_by_stage(device, launches, spans)
+    assert got == want
+    assert sum(got.values()) == sum(d for _, d in device)
+    # the spans' order does not matter
+    assert timing.device_time_by_stage(device, launches,
+                                       spans[::-1]) == want
+
+
+@pytest.mark.gpu
+def test_device_time_by_stage_on_the_card(tmp_path):
+    """On the card, stage A and stage B get device time, stage B at
+    least K7's, and the stages' sums add up to the trace's device
+    events."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    src = str(tmp_path / "in.fastq")
+    with open(src, "wb") as f:
+        f.write(synth_fastq(20000, 100, seed=6, genome_len=200_000,
+                            n_rate=0.001))
+    # the bare command's placement: K1 in stage A, K7 in stage B
+    cfg = Config(inputs=(src,), output=str(tmp_path / "p"),
+                 block_reads=4096, backend="gz", threads=2,
+                 core_on_device=True, delta_on_device=True,
+                 qual_on_device=False, qual_context_order=0)
+    driver.compress(cfg, "cuda")             # builds the kernels
+    with timing.profile(str(tmp_path / "t"), "cuda"):
+        driver.compress(cfg, "cuda")
+        torch.cuda.synchronize()
+    dev = timing.counters()["device_us"]
+    (path,) = glob.glob(str(tmp_path / "t" / "*.trace.json"))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    k7 = sum(e["dur"] for e in events if e["cat"] == "kernel"
+             and "delta_seq_" in e["name"])
+    assert dev.get("stage A", 0) > 0, dev
+    assert dev.get("stage B", 0) >= k7 > 0, (dev, k7)
+    assert sum(dev.values()) == pytest.approx(
+        sum(e["dur"] for e in events), rel=0.005)
