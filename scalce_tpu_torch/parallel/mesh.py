@@ -21,7 +21,9 @@ between devices; the one collective is :func:`lossy_hist_allreduce`
 single-host driver does not need.  A tail group (fewer than D blocks or
 pairs) takes the single-device :class:`BlockEncoder`, as the
 reference's does.  Every payload byte equals the single-device path's:
-bytes are a pure function of (block, Config).
+bytes are a pure function of (block, Config).  Under ``--profile`` the
+dispatch counts the blocks (pairs) of full groups, ``grouped_blocks``,
+and of tail groups, ``tail_blocks``.
 
 As :class:`BlockEncoder`'s, a group goes through :meth:`upload_group`
 (any thread), :meth:`ShardedEncoder.dispatch` (the thread that owns the
@@ -43,7 +45,7 @@ from scalce_tpu_torch.device import resolve_device
 from scalce_tpu_torch.ops.histogram import histogram
 from scalce_tpu_torch.pipeline import encode
 from scalce_tpu_torch.streams import qualities
-from scalce_tpu_torch.timing import stage
+from scalce_tpu_torch.timing import count, stage
 from scalce_tpu_torch.transfer import Fetched, Link, Staged
 
 
@@ -266,7 +268,9 @@ class ShardedEncoder:
         its :meth:`upload_group`); a tail group block by block through
         the single-device encoder."""
         if len(blocks) < self.D:
+            count("tail_blocks", len(blocks))
             return [self._fallback.dispatch(b) for b in blocks]
+        count("grouped_blocks", len(blocks))
         if self._host_delta:
             return self._download_hd(self._stage1(blocks, pre), "hd")
         return self._download(self.encode_device(blocks, pre))
@@ -303,7 +307,9 @@ class ShardedEncoder:
         """:meth:`dispatch` of a group of pairs: per pair, both mates'
         downloads; a tail group pair by pair."""
         if len(pairs) < self.D:
+            count("tail_blocks", len(pairs))
             return [self._fallback.dispatch_pair(*p) for p in pairs]
+        count("grouped_blocks", len(pairs))
         if self._host_delta:
             b1s, b2s = [p[0] for p in pairs], [p[1] for p in pairs]
             s1 = self._stage1(b1s, pre1)

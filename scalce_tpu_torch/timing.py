@@ -10,9 +10,10 @@ lock, thread or device work.  Inside :func:`profile` each stage is a
 runs it (the profile records every thread); stages may nest within a
 thread.  Counts add to the current driver call's counters (``compress``
 or ``decompress``, named by :func:`begin`).  When the profile stops, each
-kernel, copy and memset the card ran is given to the innermost stage
-around the host call that queued it (:func:`device_time_by_stage`), and
-:func:`counters` returns the counters and that device time.
+kernel, copy and memset a card ran is given to the innermost stage
+around the host call that queued it (:func:`device_time_by_stage`), per
+card too (:func:`device_time_by_card`), and :func:`counters` returns the
+counters and that device time.
 """
 
 from __future__ import annotations
@@ -81,9 +82,11 @@ def count(name: str, n: int) -> None:
 
 
 def counters() -> Dict:
-    """The last profile's counters, ``{call: {name: n}}``, and under
-    ``"device_us"`` the card's microseconds per stage
-    (:func:`device_time_by_stage`; empty without a card)."""
+    """The last profile's counters, ``{call: {name: n}}``, under
+    ``"device_us"`` the cards' microseconds per stage
+    (:func:`device_time_by_stage`) and under ``"device_us_by_card"`` the
+    same per card, ``{card: {stage: us}}`` (:func:`device_time_by_card`);
+    both empty without a card."""
     return _last
 
 
@@ -100,6 +103,30 @@ def device_time_by_stage(
     to the innermost span on its launch's thread that contains the
     launch, or to :data:`NO_STAGE` (also when its launch is unknown), so
     the sums add up to the events' total."""
+    by_card = device_time_by_card(((c, d, 0) for c, d in device), launches,
+                                  spans)
+    return _summed(by_card)
+
+
+def _summed(by_card: Mapping[int, Mapping[str, float]]) -> Dict[str, float]:
+    """Each stage's time summed over the cards."""
+    out: Dict[str, float] = collections.defaultdict(float)
+    for per in by_card.values():
+        for name, t in per.items():
+            out[name] += t
+    return dict(out)
+
+
+def device_time_by_card(
+        device: Iterable[Tuple[int, float, int]],
+        launches: Mapping[int, Tuple[int, float]],
+        spans: Iterable[Tuple[str, int, float, float]]
+) -> Dict[int, Dict[str, float]]:
+    """:func:`device_time_by_stage` per card: ``device`` holds
+    ``(correlation, duration, card)`` of each device event, and each
+    card's events are given to the stages as there ->
+    ``{card: {stage: duration}}``; summed over the cards, the stages'
+    times are :func:`device_time_by_stage`'s."""
     per_thread: Dict[int, list] = collections.defaultdict(list)
     for name, tid, s, e in spans:
         per_thread[tid].append((s, -e, name))
@@ -127,26 +154,29 @@ def device_time_by_stage(
             i = parent[i]
         return v[i][2] if i >= 0 else NO_STAGE
 
-    out: Dict[str, float] = collections.defaultdict(float)
-    for corr, dur in device:
+    out: Dict[int, Dict[str, float]] = collections.defaultdict(
+        lambda: collections.defaultdict(float))
+    for corr, dur, card in device:
         at = launches.get(corr)
-        out[NO_STAGE if at is None else innermost(*at)] += dur
-    return dict(out)
+        out[card][NO_STAGE if at is None else innermost(*at)] += dur
+    return {card: dict(per) for card, per in out.items()}
 
 
-def _device_us(prof, names) -> Dict[str, float]:
-    """:func:`device_time_by_stage` over the stopped profile's events, in
-    microseconds.  Device events are the card's kernels, copies and
-    memsets (not the card-side copies of the host's spans); a launch is
-    the CUDA runtime or driver call (``cuda*``, ``cu*``) that shares the
-    event's correlation id (the host's ops number theirs apart); thread
-    ids are the profiler's own, the same for calls and spans."""
+def _device_us(prof, names) -> Dict[int, Dict[str, float]]:
+    """:func:`device_time_by_card` over the stopped profile's events, in
+    microseconds.  Device events are the cards' kernels, copies and
+    memsets (not the card-side copies of the host's spans), each with
+    its card's index; a launch is the CUDA runtime or driver call
+    (``cuda*``, ``cu*``) that shares the event's correlation id (the
+    host's ops number theirs apart); thread ids are the profiler's own,
+    the same for calls and spans."""
     device, launches, spans = [], {}, []
     cpu = torch.autograd.DeviceType.CPU
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != cpu:
             if not e.is_user_annotation():
-                device.append((e.correlation_id(), e.duration_ns() / 1e3))
+                device.append((e.correlation_id(), e.duration_ns() / 1e3,
+                               e.device_index()))
         elif e.is_user_annotation():
             if e.name() in names:
                 spans.append((e.name(), e.start_thread_id(), e.start_ns(),
@@ -154,7 +184,7 @@ def _device_us(prof, names) -> Dict[str, float]:
         elif e.name().startswith("cu"):
             launches[e.correlation_id()] = (e.start_thread_id(),
                                              e.start_ns())
-    return device_time_by_stage(device, launches, spans)
+    return device_time_by_card(device, launches, spans)
 
 
 @contextlib.contextmanager
@@ -192,8 +222,10 @@ def profile(trace_dir: Optional[str], device,
     finally:
         _profiling = False
         prof.stop()
+        by_card = _device_us(prof, set(_names))
         _last = {**{c: dict(v) for c, v in _counts.items()},
-                 "device_us": _device_us(prof, set(_names))}
+                 "device_us": _summed(by_card),
+                 "device_us_by_card": by_card}
         base = os.path.join(
             trace_dir, f"scalce_tpu_torch.{os.getpid()}.{next(_traces)}")
         prof.export_chrome_trace(base + ".trace.json")

@@ -503,6 +503,70 @@ def test_card_data_parallel_matches_cpu(cuda, tmp_path):
     assert outs["cpu"] == outs["cuda"]
 
 
+def test_card_data_parallel_qual_device_every_card(cuda, tmp_path):
+    """``--data-parallel --qual-device --qual-order 1`` over every visible
+    card (two groups a card and a tail block), profiled: the one-card
+    triplet byte for byte, a ``--qual-device`` round trip, the blocks of
+    full and tail groups counted, and each card's device time given to
+    the stages adding up, per card, to the trace's events on that card
+    and, over the cards, to the time per stage."""
+    import glob
+    import json
+    import scalce_tpu_torch
+    from scalce_tpu_torch import timing
+    from scalce_tpu_torch.config import Config
+    from scalce_tpu_torch.utils.synth import synth_fastq
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards or more")
+    data = synth_fastq(2 * n * 1024 + 300, 100, seed=19, var_len=True,
+                       n_rate=0.01, genome_len=200_000)
+    src = os.path.join(tmp_path, "in.fastq")
+    with open(src, "wb") as f:
+        f.write(data)
+    kw = dict(block_reads=1024, max_read_len=128, core_on_device=True,
+              delta_on_device=True, qual_on_device=True,
+              qual_context_order=1, backend="gz", threads=4)
+    one = os.path.join(tmp_path, "one")
+    scalce_tpu_torch.compress(Config(inputs=(src,), output=one, **kw),
+                              "cuda:0")
+    dp = os.path.join(tmp_path, "dp")
+    cfg = Config(inputs=(src,), output=dp, data_parallel=True, **kw)
+    scalce_tpu_torch.compress(cfg, "cuda")          # builds the kernels
+    with timing.profile(str(tmp_path / "t"), "cuda"):
+        stats = scalce_tpu_torch.compress(cfg, "cuda")
+        for i in range(n):
+            torch.cuda.synchronize(i)
+    assert stats.device == ",".join(f"cuda:{i}" for i in range(n))
+    got, want = ([open(f"{p}.00.scalce{s}", "rb").read() for s in "nrq"]
+                 for p in (dp, one))
+    assert got == want
+    counters = timing.counters()
+    assert counters["compress"]["grouped_blocks"] == 2 * n
+    assert counters["compress"]["tail_blocks"] == 1
+    by_card, by_stage = counters["device_us_by_card"], counters["device_us"]
+    assert set(by_card) == set(range(n))
+    summed = {}
+    for per in by_card.values():
+        assert per.get("stage A+B", 0) > 0 and per.get("pass B", 0) > 0
+        for name, t in per.items():
+            summed[name] = summed.get(name, 0.0) + t
+    assert summed == pytest.approx(by_stage) and set(summed) == set(by_stage)
+    (path,) = glob.glob(str(tmp_path / "t" / "*.trace.json"))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    for card, per in by_card.items():
+        on_card = sum(e["dur"] for e in events
+                      if int(e.get("args", {}).get("device", -1)) == card)
+        assert sum(per.values()) == pytest.approx(on_card, rel=0.005), card
+    scalce_tpu_torch.decompress(Config(
+        mode="decompress", inputs=(dp + ".00.scalcen",),
+        output=os.path.join(tmp_path, "d"), keep_order=True,
+        qual_on_device=True), "cuda")
+    assert open(os.path.join(tmp_path, "d.fastq"), "rb").read() == data
+
+
 def test_card_compress_matches_cpu(cuda, tmp_path):
     import scalce_tpu_torch
     from scalce_tpu_torch.config import Config

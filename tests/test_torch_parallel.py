@@ -13,12 +13,14 @@ import torch
 
 import scalce_tpu
 import scalce_tpu_torch
+from portbench.reference import records as ref_records
 from scalce_tpu.config import Config as RefConfig
 from scalce_tpu.io import fastq
 from scalce_tpu.models import lossy
 from scalce_tpu.parallel import mesh as ref_mesh
 from scalce_tpu.streams import qualities as ref_q
 from scalce_tpu.utils.synth import synth_fastq
+from scalce_tpu_torch import timing
 from scalce_tpu_torch.config import Config
 from scalce_tpu_torch.parallel import mesh
 from scalce_tpu_torch.pipeline.encode import BlockEncoder
@@ -109,6 +111,40 @@ def test_data_parallel_cpu_device_is_one_device(fastq_file):
             inputs=(src,), output=os.path.join(d, name), data_parallel=dp,
             **SLICE), "cpu")
     assert _triplet(os.path.join(d, "dp1")) == _triplet(os.path.join(d, "one"))
+
+
+@pytest.mark.parametrize("block_reads,grouped,tail", [
+    (512, 8, 1), (1024, 4, 1), (2048, 0, 3)])
+def test_qual_device_data_parallel_over_four_devices(
+        fastq_file, tmp_path, monkeypatch, block_reads, grouped, tail):
+    """``--data-parallel --qual-device --qual-order 1`` over a mesh of
+    four devices (groups of 4 and a tail, a tail alone): the one-device
+    encoder's triplet byte for byte, a ``--qual-device`` decompress
+    whose records are the input's under the plain reference, and the
+    dispatch's counts of the blocks of full groups and of tail groups."""
+    d, src = str(tmp_path), fastq_file["src"]
+    four = [torch.device("cpu")] * 4
+    monkeypatch.setattr(mesh, "local_mesh", lambda n=None, device=None: four)
+    kw = {**SLICE, "block_reads": block_reads, "threads": 2}
+    scalce_tpu_torch.compress(Config(inputs=(src,), output=os.path.join(
+        d, "one"), **kw), "cpu")
+    with timing.profile(os.path.join(d, "trace"), "cpu"):
+        stats = scalce_tpu_torch.compress(Config(
+            inputs=(src,), output=os.path.join(d, "dp4"), data_parallel=True,
+            **kw), "cpu")
+    assert stats.device == "cpu,cpu,cpu,cpu"
+    assert stats.n_blocks == grouped + tail
+    counts = timing.counters()["compress"]
+    assert counts.get("grouped_blocks", 0) == grouped
+    assert counts.get("tail_blocks", 0) == tail
+    assert _triplet(os.path.join(d, "dp4")) == _triplet(os.path.join(d, "one"))
+    scalce_tpu_torch.decompress(Config(
+        mode="decompress", inputs=(os.path.join(d, "dp4.00.scalcen"),),
+        output=os.path.join(d, "dec"), qual_on_device=True, threads=2), "cpu")
+    with open(src, "rb") as f, open(os.path.join(d, "dec.fastq"), "rb") as g:
+        want, got = ref_records.records([f.read()]), ref_records.records(
+            [g.read()])
+    assert len(got) == 4600 and ref_records.mismatched(want, got) == 0
 
 
 def _stacked(blocks):

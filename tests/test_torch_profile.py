@@ -177,7 +177,8 @@ def test_counters_only_inside_profile(tmp_path):
         with timing.stage("s"):
             timing.begin("decompress")
             timing.count("y", 1)
-    want = {"compress": {"x": 5}, "decompress": {"y": 1}, "device_us": {}}
+    want = {"compress": {"x": 5}, "decompress": {"y": 1}, "device_us": {},
+            "device_us_by_card": {}}
     assert timing.counters() == want
     assert not timing.recording()
     timing.count("x", 7)
@@ -191,7 +192,7 @@ def test_counters_only_inside_profile(tmp_path):
     (path,) = glob.glob(str(tmp_path / "b" / "*.counters.json"))
     with open(path) as f:
         assert json.load(f) == timing.counters() == {
-            "compress": {"z": 4}, "device_us": {}}
+            "compress": {"z": 4}, "device_us": {}, "device_us_by_card": {}}
     src = str(tmp_path / "in.fastq")
     with open(src, "wb") as f:
         f.write(synth_fastq(500, 100, seed=4))
@@ -285,6 +286,26 @@ def test_device_time_by_stage(case):
                                        spans[::-1]) == want
 
 
+@pytest.mark.parametrize("case", sorted(ATTRIBUTION))
+def test_device_time_by_card(case):
+    """The same events spread over two cards: each card's events go to
+    the stages as they would alone, and the cards' sums add up to the
+    stages' sums."""
+    spans, launches, device, want = ATTRIBUTION[case]
+    cards = [(corr, dur, i % 2) for i, (corr, dur) in enumerate(device)]
+    got = timing.device_time_by_card(cards, launches, spans)
+    for card in (0, 1):
+        mine = [(corr, dur) for corr, dur, c in cards if c == card]
+        assert got.get(card, {}) == timing.device_time_by_stage(
+            mine, launches, spans)
+    summed = {}
+    for per in got.values():
+        for name, t in per.items():
+            summed[name] = summed.get(name, 0.0) + t
+    assert summed == pytest.approx(want) and set(summed) == set(want)
+    assert timing.device_time_by_stage(device, launches, spans) == want
+
+
 @pytest.mark.gpu
 def test_device_time_by_stage_on_the_card(tmp_path):
     """On the card, stage A and stage B get device time, stage B at
@@ -306,6 +327,8 @@ def test_device_time_by_stage_on_the_card(tmp_path):
         driver.compress(cfg, "cuda")
         torch.cuda.synchronize()
     dev = timing.counters()["device_us"]
+    (card,) = timing.counters()["device_us_by_card"].values()
+    assert card == pytest.approx(dev) and set(card) == set(dev)
     (path,) = glob.glob(str(tmp_path / "t" / "*.trace.json"))
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"
