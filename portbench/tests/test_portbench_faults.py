@@ -14,19 +14,8 @@ from scalce_tpu_torch.pipeline import driver, encode
 
 SMALL = {"reads": 4096, "compress": {"block_reads": 1024}}
 SEED = 2**33 + 11
-#: a pair cell from the configuration kept for it (``configs/pe101-qdev.json``),
-#: which BENCHMARK.json does not list yet: the harness's pair path
+#: the pair cell (``-r --qual-device``): the harness's pair path
 PAIR = "pe101-qdev.human"
-
-
-@pytest.fixture
-def with_pair(monkeypatch):
-    bench = manifest.benchmark()
-    bench["configs"].append({"name": "pe101-qdev",
-                             "file": "portbench/configs/pe101-qdev.json"})
-    bench["workloads"].append({"name": PAIR, "config": "pe101-qdev",
-                               "traffic": "human", "chips": 1})
-    monkeypatch.setattr(manifest, "benchmark", lambda: bench)
 
 
 def _run(name, overrides=SMALL):
@@ -39,7 +28,7 @@ def _checks(r):
 
 
 @pytest.mark.parametrize("name", ["se101-bare.bact", PAIR])
-def test_control_fails_sound_passes(name, with_pair):
+def test_control_fails_sound_passes(name):
     rows = control.readings(name, [SEED, SEED + 1, SEED + 2], "cpu", SMALL)
     for row in rows:
         assert row["sound"] == {"mismatched_records": 0,
@@ -66,22 +55,35 @@ def _wrap_render(monkeypatch, change):
     monkeypatch.setattr(fastq, "render_fastq_records", render)
 
 
+def _flip(out, i):
+    """The first record's first base changed."""
+    if out is None:
+        return out
+    lines = out.split(b"\n")
+    seq = bytearray(lines[1])
+    seq[0] = ord("C") if seq[0] != ord("C") else ord("A")
+    lines[1] = bytes(seq)
+    return b"\n".join(lines)
+
+
+def _half(out, i):
+    """Every second render left out."""
+    return out if i % 2 else None
+
+
+def _write_nothing(monkeypatch):
+    monkeypatch.setattr(driver, "_run_decode_pipeline",
+                        lambda items, decs, outs, workers, stats: None)
+
+
 def test_answer_altered_where_produced(monkeypatch):
-    def flip(out, i):
-        if out is None:
-            return out
-        lines = out.split(b"\n")
-        seq = bytearray(lines[1])
-        seq[0] = ord("C") if seq[0] != ord("C") else ord("A")
-        lines[1] = bytes(seq)
-        return b"\n".join(lines)
-    _wrap_render(monkeypatch, flip)
+    _wrap_render(monkeypatch, _flip)
     r = _run("se101-bare.bact")
     assert not r["correct"] and _checks(r)["mismatched_records"] >= 2
 
 
 def test_half_the_batch_left_out(monkeypatch):
-    _wrap_render(monkeypatch, lambda out, i: out if i % 2 else None)
+    _wrap_render(monkeypatch, _half)
     r = _run("se101-bare.human")
     assert not r["correct"] and r["failed"] > 0
     assert _checks(r)["mismatched_records"] >= 4096 // 2
@@ -90,13 +92,12 @@ def test_half_the_batch_left_out(monkeypatch):
 def test_state_returned_unchanged(monkeypatch):
     """A decompress that writes nothing: its output is its state as it
     found it."""
-    monkeypatch.setattr(driver, "_run_decode_pipeline",
-                        lambda items, decs, outs, workers, stats: None)
+    _write_nothing(monkeypatch)
     r = _run("se101-bare.bact")
     assert not r["correct"] and _checks(r)["mismatched_records"] >= 4096
 
 
-def test_mates_out_of_lockstep(monkeypatch, with_pair):
+def test_mates_out_of_lockstep(monkeypatch):
     def rotate(out, i):
         if out is None or b" 2:N:0:" not in out[:200]:
             return out
@@ -106,6 +107,24 @@ def test_mates_out_of_lockstep(monkeypatch, with_pair):
     _wrap_render(monkeypatch, rotate)
     r = _run(PAIR)
     assert not r["correct"] and _checks(r)["mismatched_records"] > 0
+
+
+#: the faults above, each planted under the pair cell's timed path
+PAIR_FAULTS = {
+    "answer_altered": lambda mp: _wrap_render(mp, _flip),
+    "half_the_batch": lambda mp: _wrap_render(mp, _half),
+    "state_unchanged": _write_nothing,
+}
+
+
+@pytest.mark.parametrize("fault", sorted(PAIR_FAULTS))
+def test_faults_in_the_pair_cell(monkeypatch, fault):
+    """The pair cell decodes its qualities on the device and renders
+    each mate apart: each fault there fails the check too."""
+    PAIR_FAULTS[fault](monkeypatch)
+    r = _run(PAIR)
+    assert not r["correct"] and r["failed"] > 0
+    assert _checks(r)["mismatched_records"] > 0
 
 
 def test_a_cards_share_left_out(monkeypatch):
