@@ -9,16 +9,17 @@ K4 launch and queues the grids' download, and with ``delta_on_device``
 :meth:`BlockDecoder.dispatch_seqs` uploads each block's delta fields,
 queues its pointer-doubling reconstruction (``ops/delta_decode.py``) and
 the codes' download (both on the thread that owns the device);
-:meth:`BlockDecoder.finish_group` waits for them, or decodes the
-qualities on the host (``qualities_host.decode_host``, the default),
-then ``_finish`` restores strand orientation, names and, under
-keep-order, arrival order.  Parse and finish run on any thread.
+:meth:`BlockDecoder.finish_block` waits, for one block, for its codes and
+its row of the group's grids, or decodes its qualities on the host
+(``qualities_host.decode_host``, the default), then ``_finish`` restores
+strand orientation, names and, under keep-order, arrival order.  Parse
+and each block's finish run on any thread.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -108,7 +109,7 @@ class BlockDecoder:
         """The group's quality decode on the device, queued: one K4
         launch (the blocks must share (B, L, T, order), as per-block
         order selection may not make them) and the grids' download.  For
-        host placement the streams pass through to :meth:`finish_group`."""
+        host placement the streams pass through to :meth:`finish_block`."""
         if not self.qual_on_device:
             return encs
         with stage("quality decode"):
@@ -119,27 +120,25 @@ class BlockDecoder:
         """One block's qualities decoded on the host."""
         return qualities_host.decode_host(enc, lengths)
 
-    def finish_group(self, payload_list, parsed_list, dev,
-                     name_starts, seq_dev=None) -> List["DecodedBlock"]:
-        """The host half of a group: its codes (:meth:`dispatch_seqs`'
-        downloads, when ``seq_dev`` holds them), its qualities
-        (:meth:`dispatch_quals`' download, or decoded here on the host),
-        then :meth:`_finish` of each block; ``name_starts``: each block's
-        first template-name index."""
+    def finish_block(self, payloads: Dict[str, bytes], parsed, dev, d: int,
+                     name_start: int, seq_dev=None) -> DecodedBlock:
+        """The host half of one block: its codes (its
+        :meth:`dispatch_seqs` download, when ``seq_dev`` holds it), its
+        qualities (row ``d`` of the group's :meth:`dispatch_quals`
+        download, which the group's blocks share, or its stream
+        ``dev[d]`` decoded here on the host), then :meth:`_finish`;
+        ``name_start``: its first template-name index."""
         if seq_dev is not None:
             with stage("delta decode (device)"):
-                parsed_list = [(f.wait()["codes"], *pr[1:])
-                               for f, pr in zip(seq_dev, parsed_list)]
+                parsed = (seq_dev.wait()["codes"], *parsed[1:])
         if self.qual_on_device:
             with stage("quality decode"):
-                quals = qualities.decode_batch_fetch(dev)
+                qual = qualities.decode_batch_fetch(dev)[d]
         else:
             with stage("quality decode (host)"):
-                quals = [self.decode_qual_single(e, pr[1])
-                         for e, pr in zip(dev, parsed_list)]
+                qual = self.decode_qual_single(dev[d], parsed[1])
         with stage("_finish"):
-            return [self._finish(p, pr, q, ns) for p, pr, q, ns
-                    in zip(payload_list, parsed_list, quals, name_starts)]
+            return self._finish(payloads, parsed, qual, name_start)
 
     def _finish(self, payloads: Dict[str, bytes], parsed,
                 qual: np.ndarray, name_start: int) -> DecodedBlock:

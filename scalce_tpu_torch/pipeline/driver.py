@@ -30,7 +30,7 @@ part splitting; :func:`merge_hosts` then interleaves the hosts' blocks
 into the 1-host triplet, byte for byte (``parallel/merge.py``).
 
 Decompress runs the container read on a prefetch thread, the payload
-parse and each group's finish and FASTQ render on a pool of ``-T``
+parse and each block's finish and FASTQ render on a pool of ``-T``
 workers, the quality decode's K4 launch and download and, under
 ``--delta-device``, each block's sequence reconstruction and download
 on the main thread, and the ordered writes on a writer thread.  Bytes
@@ -42,7 +42,9 @@ Under ``--profile`` the main thread's blocking waits are stages of their
 own: ``wait input`` (the compress's next uploaded block, or parsed block
 under host core), ``wait assemble`` (the oldest pending host half),
 ``wait parse`` and ``wait finish`` (the decompress's oldest payload
-parse, and the oldest group's finish and render).
+parse, and the oldest block's finish and render).  The decompress
+counts its finish tasks (``finish_tasks``) and the blocks they finish
+(``finish_blocks``).
 """
 
 from __future__ import annotations
@@ -457,9 +459,9 @@ def _run_decode_pipeline(items: Iterator, decs: List[BlockDecoder],
                      reconstruction and the codes' download
                      (``dispatch_seqs``), with the template-name start of
                      each block
-      pool:          finish (host quality decode or the download's wait,
-                     ``_finish``) and FASTQ render, per device launch or
-                     per block
+      pool:          each block's finish (host quality decode, or the
+                     wait for its row of the group's grids; ``_finish``)
+                     and FASTQ render, a task a block
       writer thread: ordered writes
     """
     C = len(decs)
@@ -470,23 +472,22 @@ def _run_decode_pipeline(items: Iterator, decs: List[BlockDecoder],
     max_parse = max(1, workers) * 2 + DECODE_GROUP
     writer = _AsyncWriter()
 
-    def finish(c, plist, parsed, dev, starts, seq_dev):
-        blocks = decs[c].finish_group(plist, parsed, dev, starts, seq_dev)
+    def finish(c, payloads, parsed, dev, d, start, seq_dev):
+        b = decs[c].finish_block(payloads, parsed, dev, d, start, seq_dev)
         with stage("render FASTQ"):
-            return blocks, [fastq.render_fastq_records(
+            return b, fastq.render_fastq_records(
                 b.seq, b.qual, b.lengths, b.n_reads, b.exc_pos, b.exc_byte,
-                b.names, b.plus) for b in blocks]
+                b.names, b.plus)
 
     def emit(futs):
         for c, f in futs:
             with stage("wait finish"):
-                blocks, bufs = f.result()
-            for b, buf in zip(blocks, bufs):
-                if buf is not None and len(buf):
-                    writer.write(outs[c], buf)
-                stats.n_reads += b.n_reads
+                b, buf = f.result()
+            if buf is not None and len(buf):
+                writer.write(outs[c], buf)
+            stats.n_reads += b.n_reads
             if c == 0:
-                stats.n_blocks += len(blocks)
+                stats.n_blocks += 1
 
     def drain(block_all: bool) -> None:
         while out_pending and (block_all or len(out_pending) > 2
@@ -494,7 +495,8 @@ def _run_decode_pipeline(items: Iterator, decs: List[BlockDecoder],
             emit(out_pending.popleft())
 
     def dispatch(group) -> None:
-        # group: [(payloads per channel, (parsed, enc) per channel)]
+        # group: [(payloads per channel, (parsed, enc) per channel)];
+        # one finish task a block, in block order, mate 1's first
         futs = []
         for c, dec in enumerate(decs):
             plist = [g[0][c] for g in group]
@@ -504,16 +506,21 @@ def _run_decode_pipeline(items: Iterator, decs: List[BlockDecoder],
             for pr in parsed:
                 starts.append(name_ctr[c])
                 name_ctr[c] += pr[2]
+            # quality decode on the card: one K4 launch for a group whose
+            # streams share (B, L, T, order), else one a block
             uniform = len({(e.B, e.L, e.T, e.order) for e in encs}) == 1
             chunks = [range(len(group))] if dec.qual_on_device and uniform \
                 else [[i] for i in range(len(group))]
             for idx in chunks:
-                sel = [plist[i] for i in idx], [parsed[i] for i in idx]
-                dev = dec.dispatch_quals(sel[1], [encs[i] for i in idx])
-                seq_dev = dec.dispatch_seqs(sel[1])
-                futs.append((c, pool.submit(finish, c, *sel, dev,
-                                            [starts[i] for i in idx],
-                                            seq_dev)))
+                dev = dec.dispatch_quals([parsed[i] for i in idx],
+                                         [encs[i] for i in idx])
+                seq_dev = dec.dispatch_seqs([parsed[i] for i in idx])
+                for d, i in enumerate(idx):
+                    futs.append((c, pool.submit(
+                        finish, c, plist[i], parsed[i], dev, d, starts[i],
+                        None if seq_dev is None else seq_dev[d])))
+                    timing.count("finish_tasks", 1)
+                    timing.count("finish_blocks", 1)    # the task's blocks
         out_pending.append(futs)
         drain(False)
 

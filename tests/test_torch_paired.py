@@ -2,12 +2,15 @@
 ``_1``/``_2`` triplets byte for byte (uniform and ragged reads with N
 bases), the triplets cross-decode in both directions with the pairs in
 sync, the data-parallel pair encoder equals the reference's and the
-single device, a resumed paired compress gives the inputs back, and
+single device, the card-decode decompress finishes a block a task in
+block order, a resumed paired compress gives the inputs back, and
 mates that disagree on their blocks are refused."""
 
 import glob
 import os
 import shutil
+import threading
+import time
 
 import pytest
 import torch
@@ -19,7 +22,9 @@ from scalce_tpu.io import fastq
 from scalce_tpu.models import lossy as ref_lossy
 from scalce_tpu.parallel import mesh as ref_mesh
 from scalce_tpu.utils.synth import synth_pair
+from scalce_tpu_torch import timing
 from scalce_tpu_torch.config import Config
+from scalce_tpu_torch.io import fastq as port_fastq
 from scalce_tpu_torch.parallel import mesh
 from scalce_tpu_torch.pipeline.encode import BlockEncoder
 
@@ -130,6 +135,65 @@ def test_sharded_encoder_pairs_match_reference_and_single_device(pair):
         for mate in (0, 1):
             assert g[mate].block_id == w[mate].block_id == s[mate].block_id
             assert g[mate].payloads == w[mate].payloads == s[mate].payloads
+
+
+@pytest.fixture(scope="module")
+def groups(tmp_path_factory):
+    """10 blocks of 256 pairs a mate (the last of 100): two decode groups
+    of four and a tail group of two, compressed by the port."""
+    d = str(tmp_path_factory.mktemp("groups"))
+    data = synth_pair(9 * 256 + 100, 100, seed=37, genome_len=50_000,
+                      var_len=True, n_rate=0.01)
+    paths = (os.path.join(d, "a.fastq"), os.path.join(d, "b.fastq"))
+    for p, x in zip(paths, data):
+        with open(p, "wb") as f:
+            f.write(x)
+    stats = scalce_tpu_torch.compress(Config(
+        inputs=paths, paired=True, output=os.path.join(d, "o"),
+        **{**SLICE, "block_reads": 256}), "cpu")
+    assert stats.n_blocks == 10
+    return {"dir": d, "data": data, "src": os.path.join(d, "o.00_1.scalcen")}
+
+
+@pytest.mark.parametrize("keep_order", [True, False])
+def test_device_decode_finish_per_block_is_the_host_decode(groups,
+                                                           keep_order):
+    """At -T 4 the card-decode decompress, a finish task a block, writes
+    the host decode's bytes; keep-order gives the input pairs back."""
+    d = groups["dir"]
+    tag = "k" if keep_order else "r"
+    got, want = (_decompress(scalce_tpu_torch, groups["src"],
+                             os.path.join(d, name + tag), threads=4,
+                             keep_order=keep_order, qual_on_device=dev)
+                 for name, dev in (("dev", True), ("host", False)))
+    assert got == want
+    assert (got == groups["data"]) == keep_order
+
+
+def test_device_decode_counts_a_finish_task_a_block(groups, tmp_path):
+    with timing.profile(str(tmp_path / "t"), "cpu"):
+        _decompress(scalce_tpu_torch, groups["src"], str(tmp_path / "d"),
+                    threads=4, keep_order=True, qual_on_device=True)
+    counts = timing.counters()["decompress"]
+    assert counts["finish_tasks"] == counts["finish_blocks"] == 10 * 2
+
+
+def test_device_decode_keeps_block_order_when_block_0_renders_last(
+        groups, tmp_path, monkeypatch):
+    """The first render sleeps while the other blocks' tasks finish: the
+    writes still come in block order."""
+    render = port_fastq.render_fastq_records
+    first = threading.Lock()
+
+    def slow_first(*args):
+        if first.acquire(blocking=False):
+            time.sleep(0.5)
+        return render(*args)
+    monkeypatch.setattr(port_fastq, "render_fastq_records", slow_first)
+    assert _decompress(scalce_tpu_torch, groups["src"], str(tmp_path / "d"),
+                       threads=4, keep_order=True,
+                       qual_on_device=True) == groups["data"]
+    assert first.locked()
 
 
 @pytest.mark.parametrize("torn", [(1, 2), (2,)])

@@ -2,7 +2,8 @@
 ``threads`` 1, 2 and 4 writes scalce_tpu's ``threads=1`` triplet (full
 device, the bare command, ``-r``, ``-p 30``, ``--data-parallel``), also
 with recycled blocks poisoned; decompress gives the same FASTQ at 1 and
-4 threads; the copied CLI surface (``-B`` parts, ``-n`` template names,
+4 threads, also from a card-decode group whose blocks mix quality
+orders (a K4 launch a block); the copied CLI surface (``-B`` parts, ``-n`` template names,
 stdin, ``-o -``, resume) round-trips at ``-T 4`` as scalce_tpu's does;
 and a failure on any thread raises out of the driver with every thread
 it started stopped.
@@ -28,6 +29,7 @@ from scalce_tpu_torch import cli, container
 from scalce_tpu_torch.config import Config
 from scalce_tpu_torch.io import fastq
 from scalce_tpu_torch.pipeline import driver, threads
+from scalce_tpu_torch.streams import qualities
 
 # xdist runs test files side by side on the CPU: one intra-op thread
 # per worker keeps torch's thread pools from oversubscribing the cores
@@ -195,6 +197,37 @@ def test_decompress_is_the_same_at_every_thread_count(files, case,
         assert outs[4] == tuple(_read(p) for p in (
             [f"{ref}_{m}.fastq" for m in (1, 2)] if case == "paired"
             else [ref + ".fastq"]))
+
+
+@pytest.fixture(scope="module")
+def mixed(tmp_path_factory):
+    """9000 HiSeq-profile reads compressed by the bare CLI in blocks of
+    4096: the order trial picks 3, 3 and 1, so the one decode group's
+    quality streams differ in order."""
+    d = str(tmp_path_factory.mktemp("mixed"))
+    src, out = os.path.join(d, "in.fastq"), os.path.join(d, "o")
+    data = synth_fastq(9000, 100, seed=5, qual_model="hiseq")
+    with open(src, "wb") as f:
+        f.write(data)
+    _bounded(cli.main, [src, "-c", "gz", "--block-reads", "4096", "-T", "4",
+                        "-o", out, "--device", "cpu"])
+    reader = container.TripletReader(out + ".00.scalcen")
+    assert [qualities.parse(p["q"]).order
+            for _, p in reader.iter_blocks()] == [3, 3, 1]
+    return {"dir": d, "src": out + ".00.scalcen", "data": data}
+
+
+@pytest.mark.parametrize("delta_device", [False, True])
+def test_mixed_order_group_decodes_on_the_card_a_block_a_launch(
+        mixed, delta_device):
+    """-d --qual-device at -T 4 on a group that mixes orders: a K4 launch
+    and a finish task a block (with --delta-device each task waits for
+    its own codes) give the input back."""
+    out = os.path.join(mixed["dir"], f"d{int(delta_device)}")
+    _bounded(cli.main, ["-d", mixed["src"], "-o", out, "--keep-order",
+                        "--qual-device", "-T", "4", "--device", "cpu"]
+             + (["--delta-device"] if delta_device else []))
+    assert _read(out + ".fastq") == mixed["data"]
 
 
 # ---------------------------------------------------------------------------
