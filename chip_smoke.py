@@ -388,7 +388,7 @@ def check_kernels(blocks, ragged, dev, kernels) -> dict:
     cfg = Config(inputs=("-",), **SLICE)
     enc = encode.BlockEncoder(cfg, dev)
     block = blocks[0]
-    pre = enc.upload(block).wait()
+    pre = enc.upload([(block,)])[0][0].wait()
     k, seed = cfg.core_k, cfg.dict_seed
     B, L = block.seq.shape
     cases = []
@@ -436,7 +436,7 @@ def check_kernels(blocks, ragged, dev, kernels) -> dict:
     # K7 on this block's stage-A outputs and on the ragged block's (reads
     # of 50-100 bases, N bases); its bound counts these inputs and the
     # products it writes
-    rag = enc.upload(ragged).wait()
+    rag = enc.upload([(ragged,)])[0][0].wait()
     _, rcodes, _, rlen, rck, rcp, _ = encode._device_stage_a(
         rag["seq"], rag["qual"], rag["len"], ragged.n_reads, rag["exc"], k,
         seed)
@@ -635,8 +635,9 @@ def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
     cfg = Config(inputs=(src,), **SLICE)
     blocks = list(fastq.iter_blocks(src, cfg.block_reads, cfg.max_read_len))
     t0 = time.monotonic()
-    want = [BlockEncoder(cfg, "cuda").encode_block(b).payloads
-            for b in blocks]
+    items = [(b,) for b in blocks]
+    want = [eb.payloads for item in items
+            for eb, in BlockEncoder(cfg, "cuda").encode([item])]
     torch.cuda.synchronize()
     t_one = time.monotonic() - t0
 
@@ -645,8 +646,8 @@ def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
     senc = mesh.ShardedEncoder(
         cfg, "cuda", group=max(1, 4 // torch.cuda.device_count()))
     got = []
-    for i in range(0, len(blocks), senc.D):
-        got += [eb.payloads for eb in senc.encode_blocks(blocks[i:i + senc.D])]
+    for i in range(0, len(items), senc.D):
+        got += [eb.payloads for eb, in senc.encode(items[i:i + senc.D])]
     torch.cuda.synchronize()
     t_group = time.monotonic() - t0
     sharded = counts(kernels, kernels)
@@ -654,7 +655,7 @@ def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
         raise AssertionError("data-parallel payloads != single-device "
                              "payloads")
     n_blocks = len(blocks)
-    del blocks, got, want
+    del blocks, items, got, want
     reset(kernels)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -682,7 +683,7 @@ def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
     say(f"compress: single-device {t_single:.3f} s = {mb / t_single:.2f} "
         f"MB/s, --data-parallel (1 block per card) {t_dp:.3f} s = "
         f"{mb / t_dp:.2f} MB/s | {smi}")
-    from scalce_tpu_torch.stage_profile import device_busy
+    from scalce_tpu_torch.timing import device_busy
     prof = device_busy(lambda: scalce_tpu_torch.compress(Config(
         inputs=(src,), output=os.path.join(tmp, "dp_prof"),
         data_parallel=True, **SLICE), "cuda"))
@@ -697,7 +698,7 @@ def check_data_parallel(src: str, tmp: str, kernels: dict, smi: str,
 
 
 def busy_split(prof: dict) -> str:
-    """``stage_profile.device_busy``'s device seconds: the port's kernels
+    """``timing.device_busy``'s device seconds: the port's kernels
     K1-K8 together, the eager torch ops and the copies, then each kind."""
     kinds = prof["by_kind_s"]
     ours = sum(sec for name, sec in kinds.items() if name[:1] == "K")
@@ -966,7 +967,7 @@ def check_pipelined(src: str, data: bytes, tmp: str, kernels: dict,
     import scalce_tpu_torch
     from scalce_tpu_torch import cli
     from scalce_tpu_torch.config import Config
-    from scalce_tpu_torch.stage_profile import device_busy
+    from scalce_tpu_torch.timing import device_busy
     mates = tuple(os.path.join(tmp, f"mate{m}.fastq") for m in (1, 2))
     at4 = {**SLICE, "threads": 4}
 
@@ -1046,7 +1047,7 @@ def check_pipelined(src: str, data: bytes, tmp: str, kernels: dict,
         say("-T 4 compress under torch.profiler: no device events recorded "
             "(device busy not measured)")
     else:
-        say(f"stage_profile.device_busy of the -T 4 compress: wall "
+        say(f"timing.device_busy of the -T 4 compress: wall "
             f"{prof['wall_s']:.3f} s, device busy {prof['busy_s']:.4f} s "
             f"({100 * prof['busy_s'] / prof['wall_s']:.1f}%; "
             f"{busy_split(prof)}) | {smi}")
@@ -1377,11 +1378,11 @@ def check_two_ranks(src: str, tmp: str, name: str, flags, want_prefix: str,
 def spans_and_kernels(trace: str):
     """(user span names, {kernel kind: events}) of one Chrome trace."""
     import collections
-    from scalce_tpu_torch import stage_profile
+    from scalce_tpu_torch import timing
     with open(trace) as f:
         events = json.load(f)["traceEvents"]
     spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
-    kinds = collections.Counter(stage_profile._kind(e["name"])
+    kinds = collections.Counter(timing.device_event_kind(e["name"])
                                 for e in events if e.get("cat") == "kernel")
     return spans, dict(kinds)
 

@@ -39,9 +39,8 @@
 //    cost more than all the zeros; a ring per warp (16 lanes, 32-byte
 //    pieces of rows) read slower than the CTA's shared ring of whole
 //    rows; 8 lanes a warp beat 16 (twice the warps per SM for the
-//    compaction, no spills); stages 4-8 differ by a few percent
-//    (`python -m scalce_tpu_torch.compact_sweep` rebuilds this file at
-//    other strips and stage counts and times them).  8 stages of 6 KB
+//    compaction, no spills); stages 4-8 differ by a few percent.
+//    8 stages of 6 KB
 //    and the 6 KB of staged words take 54 KB a CTA: 256 CTAs at
 //    N = 16384, about 2 an SM with 84 KB in flight; 4 an SM at 65536.
 //  - Other shapes (N % 16 != 0, T % 16 != 0, unaligned rows) take a

@@ -13,22 +13,21 @@ the host codec encodes each block's at assembly; under host delta
 A only and downloads each block's packed buffer, and the host runs the
 delta match at assembly (:func:`stage1_hd`).  The explicit dictionaries'
 rank LUT is uploaded once to each device.  Host core does not shard
-(``Config`` refuses it with ``--data-parallel``).
-A group of D pairs runs mate 1's stage 1, then mate 2's following each
-block's permutation, then each mate's pass B.  The encoder sends nothing
-between devices; the one collective is :func:`lossy_hist_allreduce`
-(the lossy map's histogram summed over devices), which the
-single-host driver does not need.  A tail group (fewer than D blocks or
-pairs) takes the single-device :class:`BlockEncoder`, as the
-reference's does.  Every payload byte equals the single-device path's:
-bytes are a pure function of (block, Config).  Under ``--profile`` the
-dispatch counts the blocks (pairs) of full groups, ``grouped_blocks``,
-and of tail groups, ``tail_blocks``.
+(``Config`` refuses it with ``--data-parallel``).  The encoder sends
+nothing between devices; the one collective is
+:func:`lossy_hist_allreduce` (the lossy map's histogram summed over
+devices), which the single-host driver does not need.  A tail group
+(fewer than D items) takes the single-device :class:`BlockEncoder`, as
+the reference's does.  Every payload byte equals the single-device
+path's: bytes are a pure function of (block, Config).  Under
+``--profile`` the dispatch counts the items of full groups,
+``grouped_blocks``, and of tail groups, ``tail_blocks``.
 
-As :class:`BlockEncoder`'s, a group goes through :meth:`upload_group`
-(any thread), :meth:`ShardedEncoder.dispatch` (the thread that owns the
-devices: every kernel and each device's downloads, queued) and
-:meth:`ShardedEncoder.assemble` (any thread: each block's host half).
+As :class:`BlockEncoder`'s, a group of items (tuples of mates) goes
+through :meth:`ShardedEncoder.upload` (any thread),
+:meth:`ShardedEncoder.dispatch` (the thread that owns the devices: every
+kernel and each device's downloads, queued, mate by mate) and
+:meth:`ShardedEncoder.assemble` (any thread: each item's host half).
 """
 
 from __future__ import annotations
@@ -90,13 +89,13 @@ def stage1(pre: Staged, n_reads: Sequence[int], k: int,
     :func:`upload_blocks`: stages A and B per block (K2 writes each
     block's grids, without counting them, into its slices of the share's
     ``[g, B, L]`` grids), then ONE K6 launch counts them.  With ``perms``
-    (mate 1's permutations) the blocks are mate 2's, each following its
-    mate-1 block's permutation (``make_sharded_stage_mate2``).  Returns
-    per-block lists ``perm``, ``delta``, ``len_s``, then ``sym`` and
-    ``ctx`` ``[g, B, L]`` and ``counts`` ``[g, C*94]``; without qualities
-    in ``pre`` (host placement: ``make_sharded_stage1_nq``) the last
-    three are None.  ``rank_lut``: the explicit dictionary's ranks on
-    this device (None: the hash)."""
+    (mate 1's permutations) the blocks are a later mate's, each following
+    its mate-1 block's permutation (``make_sharded_stage_mate2``).
+    Returns per-block lists ``perm``, ``delta``, ``len_s``, then ``sym``
+    and ``ctx`` ``[g, B, L]`` and ``counts`` ``[g, C*94]``; without
+    qualities in ``pre`` (host placement: ``make_sharded_stage1_nq``)
+    the last three are None.  ``rank_lut``: the explicit dictionary's
+    ranks on this device (None: the hash)."""
     pre = pre.wait()
     qual = pre.get("qual")
     sym = ctx = None
@@ -107,14 +106,10 @@ def stage1(pre: Staged, n_reads: Sequence[int], k: int,
     for j, n in enumerate(n_reads):
         q, grids = (None, None) if qual is None else (qual[j],
                                                       (sym[j], ctx[j]))
-        if perms is None:
-            outs.append(encode._encode_core(
-                pre["seq"][j], q, pre["len"][j], n, pre["exc"][j], k, seed,
-                order, qual_map, grids, rank_lut))
-        else:
-            outs.append(encode._encode_core_mate2(
-                pre["seq"][j], q, pre["len"][j], n, pre["exc"][j], perms[j],
-                k, seed, order, qual_map, grids, rank_lut))
+        outs.append(encode.encode_core(
+            pre["seq"][j], q, pre["len"][j], n, pre["exc"][j], k, seed,
+            order, qual_map, grids, rank_lut,
+            None if perms is None else perms[j]))
     perm, delta, len_s = map(list, zip(*outs))
     counts = None if qual is None else qualities.group_histogram(sym, ctx,
                                                                  order)
@@ -127,23 +122,14 @@ def stage1_hd(pre: Staged, n_reads: Sequence[int], k: int, seed: int,
     """One device's share of a group under host delta (the reference's
     ``make_sharded_stage1_hd`` on one device; with ``perms``, mate 1's
     permutations, ``make_sharded_stage_mate2_hd``): per block, stage A
-    and its packed buffer (``encode._hd_pack``).  Returns per-block
-    lists ``bufs`` and ``perms``."""
+    and its packed buffer (``encode.stage_a_hd``).  Returns per-block
+    lists ``perms`` and ``bufs``."""
     pre = pre.wait()
-    bufs, out = [], []
-    for j, n in enumerate(n_reads):
-        if perms is None:
-            buf, perm = encode._device_stage_a_hd(
-                pre["seq"][j], pre["len"][j], n, pre["exc"][j], k, seed,
-                rank_lut)
-        else:
-            perm = perms[j]
-            buf = encode._device_stage_a2_hd(
-                pre["seq"][j], pre["len"][j], pre["exc"][j], perm, k, seed,
-                rank_lut)
-        bufs.append(buf)
-        out.append(perm)
-    return bufs, out
+    out = [encode.stage_a_hd(pre["seq"][j], pre["len"][j], n, pre["exc"][j],
+                             k, seed, rank_lut,
+                             None if perms is None else perms[j])
+           for j, n in enumerate(n_reads)]
+    return [perm for _, perm in out], [buf for buf, _ in out]
 
 
 class ShardedEncoder:
@@ -157,11 +143,16 @@ class ShardedEncoder:
     codec encodes each block's qualities at assembly.  Payloads are
     byte-identical to :class:`BlockEncoder`'s."""
 
+    #: the cores' placement (``Config`` refuses host core here)
+    placement = "device"
+    on_host = False
+
     def __init__(self, cfg: Config, device, mesh=None,
                  group: Optional[int] = None, qual_map=None):
         cfg = resolve_read_len(cfg)
         self.mesh = list(mesh) if mesh is not None \
             else local_mesh(device=device)
+        self.devices = self.mesh
         self.group = group or 1
         self.D = len(self.mesh) * self.group
         self._fallback = encode.BlockEncoder(cfg, self.mesh[0], qual_map)
@@ -181,26 +172,30 @@ class ShardedEncoder:
         g = self.group
         return [blocks[i * g:(i + 1) * g] for i in range(len(self.mesh))]
 
-    def upload_group(self, blocks: Sequence[ReadBlock]
-                     ) -> Optional[List[Staged]]:
-        """Per-device stacked uploads of a full group; None for a tail
-        group (it takes the per-block path)."""
-        if len(blocks) != self.D:
-            return None
+    def _upload(self, blocks: Sequence[ReadBlock]) -> List[Staged]:
+        """Per-device stacked uploads of one mate's blocks of a full
+        group."""
         with stage("upload"):
             return [upload_blocks(share, dev, self.cfg.qual_on_device,
                                   self._links[dev])
                     for share, dev in zip(self._shares(blocks), self.mesh)]
 
-    def _stage1(self, blocks: Sequence[ReadBlock], pre=None, perms=None):
-        """Every device's :func:`stage1` of a full group (``perms``: per
-        device, mate 1's permutations), queued before any pass B, so
-        the devices run side by side."""
+    def upload(self, group: Sequence[Tuple[ReadBlock, ...]]
+               ) -> Optional[List[List[Staged]]]:
+        """A full group's uploads, mate by mate (per mate, per device);
+        None for a tail group (it takes the per-item path)."""
+        if len(group) != self.D:
+            return None
+        return [self._upload(blocks) for blocks in zip(*group)]
+
+    def _stage1(self, blocks: Sequence[ReadBlock], pre, perms=None):
+        """Every device's :func:`stage1` of one mate's blocks of a full
+        group (``perms``: per device, mate 1's permutations), queued
+        before any pass B, so the devices run side by side."""
         if len(blocks) != self.D:
             raise ValueError(f"a device group takes {self.D} blocks, got "
                              f"{len(blocks)}")
         cfg = self.cfg
-        pre = pre if pre is not None else self.upload_group(blocks)
         shares = list(enumerate(zip(pre, self._shares(blocks), self.mesh)))
         if self._host_delta:
             with stage("stage A"):
@@ -231,19 +226,14 @@ class ShardedEncoder:
                         sym, ctx, counts, T, cfg.qual_context_order)
                     for perm, delta, len_s, sym, ctx, counts in s1]
 
-    def encode_device(self, blocks: Sequence[ReadBlock], pre=None):
-        """Device work of a full group: every device's stage 1, then
-        every device's pass B."""
-        return self._pass_b(blocks, self._stage1(blocks, pre))
-
-    def _download_hd(self, per_device, key: str) -> List[Fetched]:
+    def _download_hd(self, per_device) -> List[Fetched]:
         """Host delta: each device's packed buffers, one queued copy per
-        device, marked ``key`` (``"hd"`` mate 1, ``"hd2"`` mate 2) -> one
-        :class:`Fetched` per block, in input order."""
+        device, marked ``"hd"`` -> one :class:`Fetched` per block, in
+        input order."""
         out = []
-        for dev, (bufs, _) in zip(self.mesh, per_device):
+        for dev, (_, bufs) in zip(self.mesh, per_device):
             with stage("download"):
-                out += self._links[dev].download(*({key: b} for b in bufs))
+                out += self._links[dev].download(*({"hd": b} for b in bufs))
         return out
 
     def _download(self, per_device) -> List[Fetched]:
@@ -254,7 +244,7 @@ class ShardedEncoder:
             groups = []
             for j in range(len(perm)):
                 g = {"perm": perm[j], "len_s": len_s[j],
-                     **encode._delta_for_download(delta[j])}
+                     **encode.delta_for_download(delta[j])}
                 if pb[0] is not None:
                     g.update(qualities.for_download(*(t[j] for t in pb)))
                 groups.append(g)
@@ -262,76 +252,42 @@ class ShardedEncoder:
                 out += self._links[dev].download(*groups)
         return out
 
-    def dispatch(self, blocks: Sequence[ReadBlock], pre=None
-                 ) -> List[Fetched]:
+    def dispatch(self, group: Sequence[Tuple[ReadBlock, ...]], pre=None
+                 ) -> List[List[Fetched]]:
         """Every kernel of a group and its downloads, queued (``pre``:
-        its :meth:`upload_group`); a tail group block by block through
-        the single-device encoder."""
-        if len(blocks) < self.D:
-            count("tail_blocks", len(blocks))
-            return [self._fallback.dispatch(b) for b in blocks]
-        count("grouped_blocks", len(blocks))
+        its :meth:`upload`, else made now): each mate's stage 1 in turn,
+        a later mate's following mate 1's permutations, then each mate's
+        group pass B (one K6 and one K5 launch per device and mate) and
+        downloads.
+        Returns per item one :class:`Fetched` per mate; a tail group
+        goes item by item through the single-device encoder."""
+        if len(group) < self.D:
+            count("tail_blocks", len(group))
+            return self._fallback.dispatch(group)
+        count("grouped_blocks", len(group))
+        mates = list(zip(*group))
+        s1, perms = [], None
+        for blocks, p in zip(mates, pre or self.upload(group)):
+            s1.append(self._stage1(blocks, p, perms))
+            perms = perms or [s[0] for s in s1[0]]
         if self._host_delta:
-            return self._download_hd(self._stage1(blocks, pre), "hd")
-        return self._download(self.encode_device(blocks, pre))
+            fetched = [self._download_hd(s) for s in s1]
+        else:
+            outs = [self._pass_b(blocks, s) for blocks, s in zip(mates, s1)]
+            fetched = [self._download(o) for o in outs]
+        return [list(f) for f in zip(*fetched)]
 
-    def assemble(self, blocks: Sequence[ReadBlock],
-                 fetched: Sequence[Fetched]) -> List[encode.EncodedBlock]:
-        """Per-block host halves (payload bytes), in input order."""
-        return [self._fallback.assemble(b, f)
-                for b, f in zip(blocks, fetched)]
+    def assemble(self, group: Sequence[Tuple[ReadBlock, ...]],
+                 fetched: Sequence[Sequence[Fetched]]
+                 ) -> List[Tuple[encode.EncodedBlock, ...]]:
+        """Per-item host halves (payload bytes), in input order."""
+        return self._fallback.assemble(group, fetched)
 
-    def encode_blocks(self, blocks: Sequence[ReadBlock]
-                      ) -> List[encode.EncodedBlock]:
-        """Encode up to D blocks; a tail group goes block by block
-        through the single-device encoder (identical bytes)."""
-        return self.assemble(blocks, self.dispatch(blocks))
-
-    # paired-end: mate 1 defines each block's permutation; mate 2's
-    # stage 1 follows it, then each mate's group pass B (one K6 and one
-    # K5 launch per device and mate)
-
-    def encode_device_pair(self, pairs: Sequence[Tuple[ReadBlock,
-                                                       ReadBlock]],
-                           pre1=None, pre2=None):
-        """Device work of a full group of D pairs (``pre1``/``pre2``:
-        each mate's :meth:`upload_group`) -> ``(mate 1's, mate 2's)``
-        per-device outputs in :meth:`encode_device`'s form."""
-        b1s, b2s = [p[0] for p in pairs], [p[1] for p in pairs]
-        s1 = self._stage1(b1s, pre1)
-        s2 = self._stage1(b2s, pre2, perms=[s[0] for s in s1])
-        return self._pass_b(b1s, s1), self._pass_b(b2s, s2)
-
-    def dispatch_pair(self, pairs, pre1=None, pre2=None
-                      ) -> List[List[Fetched]]:
-        """:meth:`dispatch` of a group of pairs: per pair, both mates'
-        downloads; a tail group pair by pair."""
-        if len(pairs) < self.D:
-            count("tail_blocks", len(pairs))
-            return [self._fallback.dispatch_pair(*p) for p in pairs]
-        count("grouped_blocks", len(pairs))
-        if self._host_delta:
-            b1s, b2s = [p[0] for p in pairs], [p[1] for p in pairs]
-            s1 = self._stage1(b1s, pre1)
-            s2 = self._stage1(b2s, pre2, perms=[perms for _, perms in s1])
-            return [list(f) for f in zip(self._download_hd(s1, "hd"),
-                                         self._download_hd(s2, "hd2"))]
-        out1, out2 = self.encode_device_pair(pairs, pre1, pre2)
-        return [list(f) for f in zip(self._download(out1),
-                                     self._download(out2))]
-
-    def assemble_pair(self, pairs, fetched
-                      ) -> List[Tuple[encode.EncodedBlock,
-                                      encode.EncodedBlock]]:
-        return [self._fallback.assemble_pair(*p, f)
-                for p, f in zip(pairs, fetched)]
-
-    def encode_block_pairs(self, pairs: Sequence[Tuple[ReadBlock, ReadBlock]]
-                           ) -> List[Tuple[encode.EncodedBlock,
-                                           encode.EncodedBlock]]:
-        """Encode up to D pairs; a tail group goes pair by pair through
+    def encode(self, group: Sequence[Tuple[ReadBlock, ...]]
+               ) -> List[Tuple[encode.EncodedBlock, ...]]:
+        """Encode up to D items; a tail group goes item by item through
         the single-device encoder (identical bytes)."""
-        return self.assemble_pair(pairs, self.dispatch_pair(pairs))
+        return self.assemble(group, self.dispatch(group))
 
 
 def lossy_hist_allreduce(quals, lengths, mesh: Sequence[torch.device]

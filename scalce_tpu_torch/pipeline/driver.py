@@ -2,21 +2,27 @@
 ``scalce_tpu/pipeline/driver.py`` entry points: single-end, paired-end,
 lossy and ``--data-parallel``), pipelined as the reference's are.
 
+The compress's item is a tuple of mates, ``(block,)`` single-end and
+``(mate 1, mate 2)`` for ``-r``, from the parse on, as the decompress
+carries each block's payloads per mate: one path for both.  The
+single-device :class:`BlockEncoder` runs groups of one item, the
+:class:`ShardedEncoder` (``--data-parallel``) groups of D items over
+the devices; both take the same three calls (:func:`_encoder`).
 Compress runs on these threads:
 
 - parse: :func:`~scalce_tpu_torch.pipeline.threads._prefetch` over the
-  FASTQ parse, three blocks ahead;
+  FASTQ parse, three items ahead;
 - upload: ``_prefetch`` over the uploads (page-locked staging, the H2D
-  copies on the device's copy stream), two blocks (or groups) ahead;
-- main: dispatch, in block order -- every kernel of a block (or of a
-  data-parallel group) and its downloads, queued on the device without
-  waiting for it (``transfer.Link`` keeps at most ``transfer.DEPTH``
-  downloads in flight per device, whatever ``-T`` is); then the
-  emits (container writes), in block order;
-- ``cfg.threads`` (``-T``) assembly workers: each block's host half
+  copies on the device's copy stream), two groups ahead;
+- main: dispatch, in block order -- every kernel of a group and its
+  downloads, queued on the device without waiting for it
+  (``transfer.Link`` keeps at most ``transfer.DEPTH`` downloads in
+  flight per device, whatever ``-T`` is); then the emits (container
+  writes), in block order;
+- ``cfg.threads`` (``-T``) assembly workers: each group's host half
   (wait for its downloads, payload bytes), at most ``threads + 2``
-  blocks pending.  With ``-T 1`` or less the main thread assembles each
-  block right after its dispatch: the same code, no pool.
+  groups pending.  With ``-T 1`` or less the main thread assembles each
+  group right after its dispatch: the same code, no pool.
 
 Under host core and for long reads there is no upload thread and
 nothing is queued on a device: the workers run each block whole on the
@@ -115,7 +121,7 @@ def _lossy_preamble(cfg: Config, blocks: Iterator):
     sampled = 0
     with stage("lossy preamble"):
         for item in blocks:
-            for b in item if isinstance(item, tuple) else (item,):
+            for b in item:
                 hist += lossy.sample_histogram(b.qual, b.lengths, b.n_reads)
                 sampled += b.n_reads
             buffered.append(item)
@@ -181,14 +187,17 @@ def _oldest(pending: collections.deque):
         return pending.popleft().result()
 
 
-def _first(item):
-    """The (mate-1) block of a parsed item."""
-    return item[0] if isinstance(item, tuple) else item
+def _mates(blocks: Iterator) -> Iterator:
+    """Single-end blocks as items of one mate, ``(block,)``; closes
+    ``blocks`` when it stops."""
+    with contextlib.closing(blocks):
+        for block in blocks:
+            yield (block,)
 
 
 def _parsed(blocks: Iterator, keep: Callable[[int], bool]) -> Iterator:
-    """The parsed blocks (or pairs), timed as ``parse FASTQ``, whose
-    block id ``keep`` takes (this host's, and not yet in a resumed
+    """The parsed items (tuples of mates), timed as ``parse FASTQ``,
+    whose block id ``keep`` takes (this host's, and not yet in a resumed
     triplet).  Closes ``blocks`` (the input) when it stops."""
     with contextlib.closing(blocks):
         while True:
@@ -196,7 +205,7 @@ def _parsed(blocks: Iterator, keep: Callable[[int], bool]) -> Iterator:
                 item = next(blocks, None)
             if item is None:
                 return
-            if keep(_first(item).block_id):
+            if keep(item[0].block_id):
                 yield item
 
 
@@ -269,37 +278,19 @@ def _open_writers(cfg: Config) -> List[container.TripletWriter]:
 
 
 def _encoder(cfg: Config, device, qual_map):
-    """``(devices, D, upload, dispatch, assemble, placement)`` of the
-    run's encoder: the single-device :class:`BlockEncoder` on groups of
-    one block, or the :class:`ShardedEncoder` on groups of D.
-    ``upload(group)`` runs on the upload thread (None under host core:
-    nothing crosses to a device), ``dispatch(group, pre)`` on the main
-    thread, ``assemble(group, dispatched)`` gives one output per block
-    (a pair of them for ``-r``) on any thread; ``placement`` is
-    ``"host"`` or ``"device"`` (the cores'; long reads: ``"host"``)."""
+    """The run's encoder: :class:`ShardedEncoder` under
+    ``--data-parallel`` (groups of D items over the devices), else the
+    single-device :class:`BlockEncoder` (groups of one).  Either takes
+    groups of items, each a tuple of mates (one, or two for ``-r``):
+    ``upload(group)`` on the upload thread (None under host core and for
+    long reads: nothing crosses to a device, ``on_host``),
+    ``dispatch(group, pre)`` on the main thread, and ``assemble(group,
+    dispatched)``, one tuple of outputs per item, on any thread;
+    ``placement`` is ``"host"`` or ``"device"`` (the cores'; long reads:
+    ``"host"``) and ``devices`` the devices it queues work on."""
     if cfg.data_parallel:
-        senc = ShardedEncoder(cfg, device, qual_map=qual_map)
-        if cfg.paired:
-            return (senc.mesh, senc.D,
-                    lambda g: (senc.upload_group([p[0] for p in g]),
-                               senc.upload_group([p[1] for p in g])),
-                    lambda g, pre: senc.dispatch_pair(g, *pre),
-                    senc.assemble_pair, "device")
-        return (senc.mesh, senc.D, senc.upload_group, senc.dispatch,
-                senc.assemble, "device")
-    enc = BlockEncoder(cfg, device, qual_map)
-    devices = [] if enc.on_host else [enc.device]
-    if cfg.paired:
-        upload = lambda g: (enc.upload(g[0][0]), enc.upload(g[0][1]))
-        dispatch = lambda g, pre: enc.dispatch_pair(
-            *g[0], *(pre or (None, None)))
-        assemble = lambda g, f: [enc.assemble_pair(*g[0], f)]
-    else:
-        upload = lambda g: enc.upload(g[0])
-        dispatch = lambda g, pre: enc.dispatch(g[0], pre)
-        assemble = lambda g, f: [enc.assemble(g[0], f)]
-    return (devices, 1, None if enc.on_host else upload, dispatch,
-            assemble, enc.placement)
+        return ShardedEncoder(cfg, device, qual_map=qual_map)
+    return BlockEncoder(cfg, device, qual_map)
 
 
 def compress(cfg: Config, device) -> RunStats:
@@ -322,12 +313,12 @@ def compress(cfg: Config, device) -> RunStats:
                                           cfg.max_read_len)
     else:
         (path,) = cfg.inputs
-        blocks = fastq.iter_blocks(path, cfg.block_reads, cfg.max_read_len)
+        blocks = _mates(fastq.iter_blocks(path, cfg.block_reads,
+                                          cfg.max_read_len))
     qual_map, blocks = _lossy_preamble(cfg, blocks)
-    devices, D, upload, dispatch, assemble, placement = _encoder(
-        cfg, device, qual_map)
-    stats = RunStats(mode="compress", placement=placement,
-                     device=",".join(str(d) for d in devices) or "host")
+    enc = _encoder(cfg, device, qual_map)
+    stats = RunStats(mode="compress", placement=enc.placement,
+                     device=",".join(str(d) for d in enc.devices) or "host")
     writers = _open_writers(cfg)
 
     def assemble_recycle(item, dispatched):
@@ -335,15 +326,14 @@ def compress(cfg: Config, device) -> RunStats:
         # upload copied them into page-locked staging): the parser may
         # reuse them
         group = item[0]
-        outs = assemble(group, dispatched)
-        for x in group:
-            for b in x if isinstance(x, tuple) else (x,):
+        outs = enc.assemble(group, dispatched)
+        for mates in group:
+            for b in mates:
                 fastq.recycle_block(b)
         return outs
 
     def emit(outs):
-        for out in outs:
-            ebs = out if cfg.paired else (out,)
+        for ebs in outs:
             with stage("write"):
                 for w, eb in zip(writers, ebs):
                     w.add_block(eb.block_id, eb.payloads, eb.n_reads)
@@ -360,18 +350,18 @@ def compress(cfg: Config, device) -> RunStats:
 
     done = writers[0].existing_blocks
     groups = _groups(_parsed(blocks, lambda bid: owns_block(
-        bid, cfg.host_id, cfg.n_hosts) and bid not in done), D)
+        bid, cfg.host_id, cfg.n_hosts) and bid not in done), enc.D)
     # host core and long reads: no upload stage, the parse's prefetch
     # alone (the reference's host-core branch); this thread's wait for
     # its next input is ``wait input``
-    if upload is None:
+    if enc.on_host:
         items = _staged(groups, None, wait="wait input")
     else:
-        items = _prefetch(_staged(groups, upload), depth=2,
+        items = _prefetch(_staged(groups, enc.upload), depth=2,
                           wait="wait input")
     try:
         with contextlib.closing(items):
-            _run_pipelined(items, lambda it: dispatch(*it),
+            _run_pipelined(items, lambda it: enc.dispatch(*it),
                            assemble_recycle, emit, cfg.threads,
                            stats.stage_s)
     finally:

@@ -31,9 +31,13 @@ any, in one K2 launch), pass B of device-placed qualities (K3, then K8's
 compaction) and the downloads, all queued on the device; then the host
 assembly of the ``n``/``r``/``q`` payloads, which waits for the
 downloads and where host-placed qualities (the CLI's default) are
-encoded by ``streams/qualities_host.py``.  Paired-end: mate 2 computes
-its own cores but follows mate 1's permutation.  Every payload byte is
-the reference's for the same block and Config.
+encoded by ``streams/qualities_host.py``.
+
+The mates of a pair are channels of one path, whatever the placement:
+mate 1 sorts, and each later mate computes its own cores but follows
+mate 1's permutation (stage A's ``perm``, the host halves' ``follow``),
+so the pairs stay line-synchronized.  Every payload byte is the
+reference's for the same block and Config.
 """
 
 from __future__ import annotations
@@ -138,31 +142,23 @@ def _stage_a_prologue(seq_packed: torch.Tensor, lengths: torch.Tensor,
 
 def _device_stage_a(seq_packed, qual, lengths, n_reads: int, exc_pos,
                     k: int, seed: int,
-                    rank_lut: Optional[torch.Tensor] = None):
+                    rank_lut: Optional[torch.Tensor] = None,
+                    perm: Optional[torch.Tensor] = None):
     """Stage A: unpack -> canonical cores -> sort -> orient + permute.
-    Qualities stay in their original orientation; with host-placed
-    qualities (``qual`` None) ``qual_s`` is None."""
+    A later mate (``perm``: mate 1's permutation) computes its own cores
+    (they align its delta: adjacent pairs usually overlap on mate 2 too)
+    and follows mate 1's permutation in place of a sort, so pairs stay
+    line-synchronized.  Qualities stay in their original orientation;
+    with host-placed qualities (``qual`` None) ``qual_s`` is None."""
     lengths, codes_o, ck, cp, is_rc = _stage_a_prologue(
         seq_packed, lengths, exc_pos, k, seed, rank_lut)
-    keys = core_match.build_sort_keys(codes_o, lengths, ck, cp, n_reads)
-    perm = reorder.sort_permutation(keys)
+    if perm is None:
+        keys = core_match.build_sort_keys(codes_o, lengths, ck, cp, n_reads)
+        perm = reorder.sort_permutation(keys)
     codes_s, len_s, ck_s, cp_s, rc_s = reorder.apply_permutation(
         perm, codes_o, lengths, ck, cp, is_rc)
     qual_s = None if qual is None else qual[perm]
     return perm, codes_s, qual_s, len_s, ck_s, cp_s, rc_s
-
-
-def _device_stage_a2(seq_packed, qual, lengths, exc_pos, perm, k: int,
-                     seed: int, rank_lut: Optional[torch.Tensor] = None):
-    """Mate-2 stage A: its own cores (they align its delta: adjacent
-    pairs usually overlap on mate 2 too), then mate 1's permutation in
-    place of a sort, so pairs stay line-synchronized."""
-    lengths, codes_o, ck, cp, is_rc = _stage_a_prologue(
-        seq_packed, lengths, exc_pos, k, seed, rank_lut)
-    codes_s, len_s, ck_s, cp_s, rc_s = reorder.apply_permutation(
-        perm, codes_o, lengths, ck, cp, is_rc)
-    qual_s = None if qual is None else qual[perm]
-    return codes_s, qual_s, len_s, ck_s, cp_s, rc_s
 
 
 def _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s, rc_s, n_reads: int,
@@ -183,39 +179,26 @@ def _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s, rc_s, n_reads: int,
     return delta, sym, ctx, counts
 
 
-def _encode_core(seq_packed, qual, lengths, n_reads: int, exc_pos, k: int,
-                 seed: int, order: int,
-                 qual_map: Optional[torch.Tensor] = None, grids=None,
-                 rank_lut: Optional[torch.Tensor] = None):
+def encode_core(seq_packed, qual, lengths, n_reads: int, exc_pos, k: int,
+                seed: int, order: int,
+                qual_map: Optional[torch.Tensor] = None, grids=None,
+                rank_lut: Optional[torch.Tensor] = None,
+                perm: Optional[torch.Tensor] = None):
     """Stages A and B of one block -> ``(perm, delta, len_s)``: the
     reference's ``_encode_core`` (``_encode_core_nq`` when ``qual`` is
-    None) without its histogram, which a data-parallel group takes over
-    all its blocks at once; K2 writes the quality grids into ``grids``,
-    the block's slices of the group's ``(sym, ctx)``."""
-    perm, codes_s, qual_s, len_s, ck_s, cp_s, rc_s = _device_stage_a(
-        seq_packed, qual, lengths, n_reads, exc_pos, k, seed, rank_lut)
-    delta = _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s, rc_s,
-                            n_reads, order, qual_map, histogram=False,
-                            grids=grids)[0]
-    return perm, delta, len_s
+    None, ``_encode_core_mate2`` when ``perm``, mate 1's, is given)
+    without its histogram, which a data-parallel group takes over all
+    its blocks at once; K2 writes the quality grids into ``grids``, the
+    block's slices of the group's ``(sym, ctx)``."""
+    perm, *sorted_ = _device_stage_a(seq_packed, qual, lengths, n_reads,
+                                     exc_pos, k, seed, rank_lut, perm)
+    delta = _device_stage_b(*sorted_, n_reads, order, qual_map,
+                            histogram=False, grids=grids)[0]
+    return perm, delta, sorted_[2]
 
 
-def _encode_core_mate2(seq_packed, qual, lengths, n_reads: int, exc_pos,
-                       perm, k: int, seed: int, order: int,
-                       qual_map: Optional[torch.Tensor] = None, grids=None,
-                       rank_lut: Optional[torch.Tensor] = None):
-    """Mate 2's counterpart of :func:`_encode_core`, following mate 1's
-    ``perm`` (returned first, as mate 2's payloads store it)."""
-    codes_s, qual_s, len_s, ck_s, cp_s, rc_s = _device_stage_a2(
-        seq_packed, qual, lengths, exc_pos, perm, k, seed, rank_lut)
-    delta = _device_stage_b(codes_s, qual_s, len_s, ck_s, cp_s, rc_s,
-                            n_reads, order, qual_map, histogram=False,
-                            grids=grids)[0]
-    return perm, delta, len_s
-
-
-def _delta_for_download(delta: Dict[str, torch.Tensor]
-                        ) -> Dict[str, torch.Tensor]:
+def delta_for_download(delta: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
     """The delta products as they cross to the host: the u32 literal
     words as their 32 bits (int32), every word (the count in use is
     known on the host only once ``n_lits`` lands)."""
@@ -224,7 +207,7 @@ def _delta_for_download(delta: Dict[str, torch.Tensor]
 
 def _delta_host(a: Dict[str, np.ndarray]) -> Dict:
     """The delta products on the host as the reference's numpy dtypes,
-    from :func:`_delta_for_download`'s arrays: the literal words in
+    from :func:`delta_for_download`'s arrays: the literal words in
     use."""
     n_lits = int(a["n_lits"])
     return {"mask_bits": a["mask_bits"], "shifts": a["shifts"],
@@ -237,7 +220,7 @@ def download_delta(delta: Dict[str, torch.Tensor]) -> Dict:
     """Blocking D2H of the delta products as the reference's numpy
     dtypes."""
     return _delta_host({k: t.cpu().numpy()
-                        for k, t in _delta_for_download(delta).items()})
+                        for k, t in delta_for_download(delta).items()})
 
 
 def _hd_pack(len_s: torch.Tensor, ck_s: torch.Tensor, cp_s: torch.Tensor,
@@ -270,18 +253,20 @@ def _hd_pack(len_s: torch.Tensor, ck_s: torch.Tensor, cp_s: torch.Tensor,
     return to_u32_bits(torch.cat(parts) & MASK32)
 
 
-def _hd_unpack(buf: np.ndarray, B: int, with_perm: bool = True):
+def _hd_unpack(buf: np.ndarray, B: int,
+               follow: Optional[np.ndarray] = None):
     """Host mirror of :func:`_hd_pack` (copy of the reference's; ``buf``
     the downloaded words viewed as uint32).  Returns ``(perm, key, cp,
-    rc, len_s)`` where ``key`` is the boundary-bit vector (mate 1) or the
-    core-id vector (mate 2)."""
-    perm = None
+    rc, len_s)`` where ``key`` is the boundary-bit vector (mate 1) or,
+    for a later mate (``follow``: mate 1's permutation, returned as
+    ``perm``), the core-id vector."""
     w = buf[B:2 * B]
-    if with_perm:
+    if follow is None:
         perm = buf[:B].astype(np.int64)
         key = ((w >> 16) & 1).astype(np.uint8)       # run-boundary bits
         cp = (w >> 17).astype(np.int32)
     else:
+        perm = follow
         key = buf[:B]                                # core ids
         cp = (w >> 16).astype(np.int32)
     rc = ((w >> 15) & 1).astype(np.uint8)
@@ -289,30 +274,23 @@ def _hd_unpack(buf: np.ndarray, B: int, with_perm: bool = True):
     return perm, key, cp, rc, len_s
 
 
-def _device_stage_a_hd(seq_packed, lengths, n_reads: int, exc_pos, k: int,
-                       seed: int, rank_lut: Optional[torch.Tensor] = None):
-    """Stage A for the host-delta placement (also the per-block body of
-    the reference's ``_encode_core_hd``): cores -> sort -> permute the
-    per-read fields, packed by :func:`_hd_pack`; the delta match runs on
-    the host.  Returns ``(buf, perm)``."""
+def stage_a_hd(seq_packed, lengths, n_reads: int, exc_pos, k: int,
+               seed: int, rank_lut: Optional[torch.Tensor] = None,
+               perm: Optional[torch.Tensor] = None):
+    """Stage A for the host-delta placement (the per-block body of the
+    reference's ``_encode_core_hd``, or with ``perm``, mate 1's, of its
+    ``_encode_core_mate2_hd``): cores -> sort (or mate 1's ``perm``) ->
+    permute the per-read fields, packed by :func:`_hd_pack`; the delta
+    match runs on the host.  Returns ``(buf, perm)``."""
     lengths, codes_o, ck, cp, is_rc = _stage_a_prologue(
         seq_packed, lengths, exc_pos, k, seed, rank_lut)
-    keys = core_match.build_sort_keys(codes_o, lengths, ck, cp, n_reads)
-    perm = reorder.sort_permutation(keys)
+    follows = perm is not None
+    if not follows:
+        keys = core_match.build_sort_keys(codes_o, lengths, ck, cp, n_reads)
+        perm = reorder.sort_permutation(keys)
     len_s, ck_s, cp_s, rc_s = reorder.apply_permutation(
         perm, lengths, ck, cp, is_rc)
-    return _hd_pack(len_s, ck_s, cp_s, rc_s, perm), perm
-
-
-def _device_stage_a2_hd(seq_packed, lengths, exc_pos, perm, k: int,
-                        seed: int, rank_lut: Optional[torch.Tensor] = None):
-    """Mate-2 stage A for the host-delta placement (the reference's
-    ``_encode_core_mate2_hd``): its own cores, mate 1's ``perm``."""
-    lengths, codes_o, ck, cp, is_rc = _stage_a_prologue(
-        seq_packed, lengths, exc_pos, k, seed, rank_lut)
-    len_s, ck_s, cp_s, rc_s = reorder.apply_permutation(
-        perm, lengths, ck, cp, is_rc)
-    return _hd_pack(len_s, ck_s, cp_s, rc_s)
+    return _hd_pack(len_s, ck_s, cp_s, rc_s, None if follows else perm), perm
 
 
 #: below this, the device link is slower than the host's own native
@@ -357,10 +335,10 @@ def host_delta_available() -> bool:
     return native.AVAILABLE and hasattr(native, "delta_match")
 
 
-#: what :meth:`BlockEncoder.dispatch` returns for a host-core block:
-#: nothing was queued on any device
+#: what :meth:`BlockEncoder.dispatch` gives each mate of a host-core
+#: item: nothing was queued on any device
 HOST_CORE = "hc"
-#: what it returns for a long-read block: nothing was queued either
+#: what it gives each mate of a long-read item: nothing was queued either
 LONG = "long"
 
 
@@ -389,11 +367,19 @@ class BlockEncoder:
     long-read encoder (``long_mode``: no probe) makes no :class:`Link`
     and queues nothing on the device.
 
-    A block goes through :meth:`upload` (any thread: the driver runs it
-    one block ahead), :meth:`dispatch` (the thread that owns the
-    device: every kernel of the block and its downloads, queued without
+    An item is a tuple of mates: ``(block,)`` single-end, ``(mate 1,
+    mate 2)`` for ``-r``.  Mate 1 sorts; each later mate computes its own
+    cores and follows mate 1's permutation.  A group of items goes
+    through :meth:`upload` (any thread: the driver runs it one group of
+    ``D = 1`` item ahead), :meth:`dispatch` (the thread that owns the
+    device: every kernel of each item and its downloads, queued without
     waiting) and :meth:`assemble` (any thread: waits for the downloads,
-    then the payload bytes on the host)."""
+    then the payload bytes on the host), as
+    :class:`~scalce_tpu_torch.parallel.mesh.ShardedEncoder`'s groups
+    do."""
+
+    #: items per group
+    D = 1
 
     def __init__(self, cfg: Config, device, qual_map=None):
         self.cfg = cfg
@@ -421,6 +407,8 @@ class BlockEncoder:
         #: nothing of the encoder touches the device
         self.on_host = self.host_core or self.long_mode
         self.placement = "host" if self.on_host else "device"
+        #: the devices it queues work on (none on the host)
+        self.devices = [] if self.on_host else [self.device]
         self.link = self.qual_map = self.rank_lut = None
         #: the explicit dictionary's ranks on the host (None: hash, or
         #: long reads, which rank no cores)
@@ -430,13 +418,11 @@ class BlockEncoder:
             self.qual_map = device_qual_map(qual_map, self.device)
             self.rank_lut = upload_rank_lut(self.rank_lut_np, self.link)
 
-    def upload(self, block: ReadBlock) -> Optional[Staged]:
-        """H2D through page-locked staging: host-packed 2-bit sequences,
-        lengths, exception positions and, when they are device-placed,
-        qualities; nothing for host core or long reads.  The block's
-        arrays are free again on return."""
-        if self.on_host:
-            return None
+    def _upload(self, block: ReadBlock) -> Staged:
+        """One block's H2D through page-locked staging: host-packed
+        2-bit sequences, lengths, exception positions and, when they
+        are device-placed, qualities.  The block's arrays are free
+        again on return."""
         with stage("upload"):
             packed = _pack2bit_np(block.seq).reshape(block.seq.shape[0], -1)
             host = {"seq": packed, "len": block.lengths,
@@ -445,92 +431,85 @@ class BlockEncoder:
                 host["qual"] = block.qual
             return self.link.upload(host)
 
-    def encode_device(self, block: ReadBlock, pre: Optional[Staged] = None):
-        """Stages A and B of the block (uploaded now unless ``pre``
-        holds its :meth:`upload`); returns the device outputs (grids and
-        counts None for host-placed qualities)."""
+    def upload(self, group: Sequence[Tuple[ReadBlock, ...]]
+               ) -> Optional[List[List[Staged]]]:
+        """Each item's mates, uploaded in order (:meth:`_upload`): per
+        item, one :class:`Staged` per mate; None for host core or long
+        reads, which send nothing."""
+        if self.on_host:
+            return None
+        return [[self._upload(b) for b in item] for item in group]
+
+    def _wait(self, block: ReadBlock, pre: Optional[Staged]) -> Staged:
+        """``pre`` (else the block's upload, made now), ordered before
+        the work queued next."""
+        return (pre if pre is not None else self._upload(block)).wait()
+
+    def encode_device(self, item: Tuple[ReadBlock, ...],
+                      pre: Optional[Sequence[Staged]] = None) -> List:
+        """Stages A and B of each mate of ``item`` (``pre``: the mates'
+        uploads, else made now), mate 1 first; each later mate follows
+        mate 1's permutation.  Returns per mate ``(perm, delta, len_s,
+        sym, ctx, counts)`` (the last three None for host-placed
+        qualities; a later mate's ``perm`` is mate 1's, which its
+        payload stores)."""
+        outs, perm = [], None
+        for c, (block, p) in enumerate(zip(item, pre or [None] * len(item))):
+            outs.append(self._encode_mate(block, p, perm, c))
+            perm = outs[0][0]
+        return outs
+
+    def _encode_mate(self, block: ReadBlock, pre: Optional[Staged],
+                     perm: Optional[torch.Tensor], c: int):
+        """Stages A and B of mate ``c`` (0: mate 1, which sorts; a later
+        mate follows mate 1's ``perm``); its sorted codes and qualities
+        are free again on return."""
         cfg = self.cfg
-        pre = (pre if pre is not None else self.upload(block)).wait()
-        with stage("stage A"):
-            perm, codes_s, qual_s, len_s, ck_s, cp_s, rc_s = _device_stage_a(
-                pre["seq"], pre.get("qual"), pre["len"], block.n_reads,
-                pre["exc"], cfg.core_k, cfg.dict_seed, self.rank_lut)
-        with stage("stage B"):
+        x = self._wait(block, pre)
+        mate = "" if c == 0 else f" (mate {c + 1})"
+        with stage("stage A" + mate):
+            perm, *sorted_ = _device_stage_a(
+                x["seq"], x.get("qual"), x["len"], block.n_reads, x["exc"],
+                cfg.core_k, cfg.dict_seed, self.rank_lut, perm)
+        with stage("stage B" + mate):
             delta, sym, ctx, counts = _device_stage_b(
-                codes_s, qual_s, len_s, ck_s, cp_s, rc_s, block.n_reads,
-                cfg.qual_context_order, self.qual_map)
-        return perm, delta, len_s, sym, ctx, counts
+                *sorted_, block.n_reads, cfg.qual_context_order,
+                self.qual_map)
+        return perm, delta, sorted_[2], sym, ctx, counts
 
-    def encode_device_pair(self, b1: ReadBlock, b2: ReadBlock,
-                           pre1: Optional[Staged] = None,
-                           pre2: Optional[Staged] = None):
-        """Paired-end device work: mate 1 as :meth:`encode_device`, then
-        mate 2 following mate 1's permutation (``pre1``/``pre2``: the
-        mates' uploads, else made now).  Returns one tuple per mate in
-        :meth:`encode_device`'s form (mate 2's holds mate 1's
-        permutation, which its payload stores)."""
+    def _dispatch(self, item: Tuple[ReadBlock, ...],
+                  pre: Optional[Sequence[Staged]]) -> List:
+        """Every kernel of one item and its downloads, queued: per mate
+        one :class:`Fetched` from ONE :meth:`Link.download`."""
+        if self.long_mode or self.host_core:
+            return [LONG if self.long_mode else HOST_CORE] * len(item)
+        if not self.host_delta:
+            return self.download(item[0].seq.shape,
+                                 *self.encode_device(item, pre))
         cfg = self.cfg
-        out1 = self.encode_device(b1, pre1)
-        perm = out1[0]
-        pre2 = (pre2 if pre2 is not None else self.upload(b2)).wait()
-        with stage("stage A (mate 2)"):
-            a2 = _device_stage_a2(pre2["seq"], pre2.get("qual"),
-                                  pre2["len"], pre2["exc"], perm,
-                                  cfg.core_k, cfg.dict_seed, self.rank_lut)
-        with stage("stage B (mate 2)"):
-            delta, sym, ctx, counts = _device_stage_b(
-                *a2, b2.n_reads, cfg.qual_context_order, self.qual_map)
-        return out1, (perm, delta, a2[2], sym, ctx, counts)
+        bufs, perm = [], None
+        for block, p in zip(item, pre or [None] * len(item)):
+            x = self._wait(block, p)
+            with stage("stage A"):
+                buf, perm = stage_a_hd(x["seq"], x["len"], block.n_reads,
+                                       x["exc"], cfg.core_k, cfg.dict_seed,
+                                       self.rank_lut, perm)
+            bufs.append({"hd": buf})
+        with stage("download"):
+            return self.link.download(*bufs)
 
-    def _stage_a_hd(self, block: ReadBlock, pre: Optional[Staged],
-                    perm: Optional[torch.Tensor] = None):
-        """Host-delta stage A of mate 1 -> ``(buf, perm)``, or of mate 2
-        (``perm``: mate 1's) -> ``buf``."""
-        cfg = self.cfg
-        pre = (pre if pre is not None else self.upload(block)).wait()
-        with stage("stage A"):
-            if perm is None:
-                return _device_stage_a_hd(
-                    pre["seq"], pre["len"], block.n_reads, pre["exc"],
-                    cfg.core_k, cfg.dict_seed, self.rank_lut)
-            return _device_stage_a2_hd(
-                pre["seq"], pre["len"], pre["exc"], perm, cfg.core_k,
-                cfg.dict_seed, self.rank_lut)
-
-    def dispatch(self, block: ReadBlock, pre: Optional[Staged] = None):
-        """Every kernel of one block and its downloads, queued:
-        :meth:`encode_device`, then :meth:`download`; under host delta,
-        stage A and the packed buffer's download (marked ``"hd"``);
-        under host core nothing (:data:`HOST_CORE`), for long reads
-        nothing (:data:`LONG`)."""
-        if self.long_mode:
-            return LONG
-        if self.host_core:
-            return HOST_CORE
-        if self.host_delta:
-            buf, _ = self._stage_a_hd(block, pre)
-            with stage("download"):
-                return self.link.download({"hd": buf})[0]
-        return self.download(block.seq.shape, self.encode_device(block,
-                                                                 pre))[0]
-
-    def dispatch_pair(self, b1: ReadBlock, b2: ReadBlock,
-                      pre1: Optional[Staged] = None,
-                      pre2: Optional[Staged] = None) -> List:
-        """:meth:`dispatch` of a pair: both mates' downloads (host delta:
-        mate 2's buffer marked ``"hd2"``, its core ids in place of the
-        permutation)."""
-        if self.long_mode:
-            return [LONG, LONG]
-        if self.host_core:
-            return [HOST_CORE, HOST_CORE]
-        if self.host_delta:
-            buf1, perm = self._stage_a_hd(b1, pre1)
-            buf2 = self._stage_a_hd(b2, pre2, perm)
-            with stage("download"):
-                return self.link.download({"hd": buf1}, {"hd2": buf2})
-        return self.download(b1.seq.shape, *self.encode_device_pair(
-            b1, b2, pre1, pre2))
+    def dispatch(self, group: Sequence[Tuple[ReadBlock, ...]],
+                 pre: Optional[List[List[Staged]]] = None) -> List[List]:
+        """Every kernel of each item and its downloads, queued, item by
+        item (``pre``: the group's :meth:`upload`, else each mate's made
+        when its stage A needs it): :meth:`encode_device`, then
+        :meth:`download`; under host delta, stage A and the packed
+        buffers' download (marked ``"hd"``).  Returns per item one
+        entry per mate: a :class:`Fetched`, or under host core
+        :data:`HOST_CORE` and for long reads :data:`LONG` (nothing
+        queued)."""
+        return [self._dispatch(item, None if pre is None else pre[i])
+                for i, item in enumerate(group)]
 
     def download(self, shape, *devouts) -> List[Fetched]:
         """The device half of assembly, for blocks of ``shape`` (B, L):
@@ -541,7 +520,7 @@ class BlockEncoder:
         B, L = shape
         groups = []
         for perm, delta, len_s, sym, ctx, counts in devouts:
-            g = {"perm": perm, "len_s": len_s, **_delta_for_download(delta)}
+            g = {"perm": perm, "len_s": len_s, **delta_for_download(delta)}
             if sym is not None:
                 with stage("pass B"):
                     g.update(qualities.pass_b(
@@ -551,61 +530,50 @@ class BlockEncoder:
         with stage("download"):
             return self.link.download(*groups)
 
-    def assemble_pair(self, b1: ReadBlock, b2: ReadBlock, fetched: Sequence
-                      ) -> Tuple[EncodedBlock, EncodedBlock]:
-        f1, f2 = fetched
-        if f1 is LONG:
-            # mate 1's minimizer order; mate 2 follows it (anchoring on
-            # its own minimizers)
-            order1 = self._long_order(b1)
-            return (self._assemble_long(b1, order_n=order1),
-                    self._assemble_long(b2, order_n=order1))
-        if f1 is HOST_CORE:
-            # mate 1's cores and sort; mate 2 follows its permutation
-            n = b1.n_reads
-            with stage("host core"):
-                cores1 = native.core_match_block(
-                    b1.seq, b1.lengths, b1.exc_pos, n, self.cfg.core_k,
-                    self.cfg.dict_seed)
-            perm_np = np.concatenate(
-                [cores1[3], np.arange(n, b1.seq.shape[0], dtype=np.int64)])
-            return (self._assemble_hc(b1, cores=cores1),
-                    self._assemble_hc(b2, perm_np=perm_np, mate2=True))
-        a1 = f1.wait()
-        if "hd" in a1:
-            buf1 = a1["hd"].view(np.uint32)
-            # mate 2 follows mate 1's permutation, which only mate 1's
-            # buffer carries
-            perm_np = buf1[:b1.seq.shape[0]].astype(np.int64)
-            return (self._assemble_hd(b1, buf1),
-                    self._assemble_hd(b2, f2.wait()["hd2"].view(np.uint32),
-                                      with_perm=False, perm_np=perm_np))
-        return self.assemble(b1, f1), self.assemble(b2, f2)
+    def assemble(self, group: Sequence[Tuple[ReadBlock, ...]],
+                 fetched: Sequence[Sequence]
+                 ) -> List[Tuple[EncodedBlock, ...]]:
+        """The host half of each item (:meth:`dispatch`'s ``fetched``):
+        its mates' payload bytes, mate 1 first; each later mate follows
+        mate 1's permutation.  Reads nothing of the device."""
+        out = []
+        for item, fs in zip(group, fetched):
+            ebs, follow = [], None
+            for block, f in zip(item, fs):
+                eb, perm = self._assemble_mate(block, f, follow)
+                follow = perm if follow is None else follow
+                ebs.append(eb)
+            out.append(tuple(ebs))
+        return out
 
-    def encode_block_pair(self, b1: ReadBlock, b2: ReadBlock
-                          ) -> Tuple[EncodedBlock, EncodedBlock]:
-        """Paired-end: mate 1 defines the permutation, mate 2 follows."""
-        return self.assemble_pair(b1, b2, self.dispatch_pair(b1, b2))
+    def encode(self, group: Sequence[Tuple[ReadBlock, ...]]
+               ) -> List[Tuple[EncodedBlock, ...]]:
+        """Each item of ``group`` whole: :meth:`dispatch`, then
+        :meth:`assemble`."""
+        return self.assemble(group, self.dispatch(group))
 
-    def assemble(self, block: ReadBlock, fetched) -> EncodedBlock:
-        """The host half of assembly: wait for the block's downloads,
-        then its payload bytes; the quality stream's lanes are gathered
-        from the downloaded word matrix, or, for host-placed qualities,
-        the host codec encodes the block's qualities through the sort
-        permutation and the lossy map (the reference's ``_assemble``).
-        Host delta: the native match off the downloaded buffer; host
-        core: the whole block on the host; long reads: the minimizer
-        order and anchored delta on the host.  Reads nothing of the
-        device."""
+    def _assemble_mate(self, block: ReadBlock, fetched,
+                       follow: Optional[np.ndarray]
+                       ) -> Tuple[EncodedBlock, np.ndarray]:
+        """One mate's host half -> ``(payloads, permutation)``: wait for
+        its downloads, then its payload bytes; the quality stream's
+        lanes are gathered from the downloaded word matrix, or, for
+        host-placed qualities, the host codec encodes the block's
+        qualities through the sort permutation and the lossy map (the
+        reference's ``_assemble``).  Host delta: the native match off
+        the downloaded buffer; host core: the whole block on the host;
+        long reads: the minimizer order and anchored delta on the host.
+        ``follow``: mate 1's permutation, for a later mate (None for
+        mate 1; the device path's download carries it)."""
         if fetched is LONG:
-            return self._assemble_long(block)
+            return self._assemble_long(block, follow)
         if fetched is HOST_CORE:
-            return self._assemble_hc(block)
+            return self._assemble_hc(block, follow)
         cfg = self.cfg
         B, L = block.seq.shape
         a = fetched.wait()
         if "hd" in a:
-            return self._assemble_hd(block, a["hd"].view(np.uint32))
+            return self._assemble_hd(block, a["hd"].view(np.uint32), follow)
         enc_q = None
         if "packed" in a:
             with stage("pass B"):
@@ -616,25 +584,21 @@ class BlockEncoder:
                               enc_q)
 
     def _assemble_hd(self, block: ReadBlock, buf: np.ndarray,
-                     with_perm: bool = True,
-                     perm_np: Optional[np.ndarray] = None) -> EncodedBlock:
+                     follow: Optional[np.ndarray] = None):
         """Host-delta assembly (the reference's): the downloaded packed
         buffer, then the native byte-compare match (bit-identical to
-        ``_delta_seq``) on the rows ``gather_orient`` rebuilds."""
+        ``_delta_seq``) on the rows ``gather_orient`` rebuilds: over
+        mate 1's sorted core runs, or a later mate's core ids."""
         B, L = block.seq.shape
-        p, key, cp, rc, len_s = _hd_unpack(buf, B, with_perm)
-        if perm_np is None:
-            perm_np = p
+        perm_np, key, cp, rc, len_s = _hd_unpack(buf, B, follow)
         n = block.n_reads
+        match = native.delta_match_runs if follow is None \
+            else native.delta_match
         with stage("host delta"):
             codes_s = native.gather_orient(block.seq, perm_np[:n], rc[:n],
                                            len_s[:n])
-            if with_perm:        # mate-1 sorted frame: run-boundary bits
-                mask_bits, shifts, pred_k, lits = native.delta_match_runs(
-                    codes_s, key[:n], cp[:n], len_s[:n], _DELTA_K)
-            else:                # mate 2 (mate-1 order): core ids
-                mask_bits, shifts, pred_k, lits = native.delta_match(
-                    codes_s, key[:n], cp[:n], len_s[:n], _DELTA_K)
+            mask_bits, shifts, pred_k, lits = match(
+                codes_s, key[:n], cp[:n], len_s[:n], _DELTA_K)
         delta_np = {
             "mask_bits": mask_bits, "shifts": shifts, "pred_k": pred_k,
             "rc_bits": np.packbits(rc, bitorder="little"),
@@ -643,26 +607,21 @@ class BlockEncoder:
         return self._assemble(block, perm_np, len_s, delta_np)
 
     def _assemble_hc(self, block: ReadBlock,
-                     perm_np: Optional[np.ndarray] = None,
-                     mate2: bool = False, cores=None) -> EncodedBlock:
+                     follow: Optional[np.ndarray] = None):
         """Host-core assembly (the reference's): the native canonical
-        matcher and stable bucket sort (``core_match_block``, bit-identical
-        to stage A), then the host-delta path's match and payloads."""
+        matcher and stable bucket sort (``core_match_block``,
+        bit-identical to stage A; a later mate follows mate 1's
+        permutation), then the host-delta path's match and payloads."""
         cfg = self.cfg
         B, L = block.seq.shape
         n = block.n_reads
         with stage("host core"):
-            if cores is None:
-                cores = native.core_match_block(
-                    block.seq, block.lengths, block.exc_pos, n, cfg.core_k,
-                    cfg.dict_seed)
-            ck, cp, rc, perm_n = cores
-            if mate2:
-                order_n = perm_np[:n]      # follow mate 1's permutation
-            else:
-                order_n = perm_n
-                perm_np = np.concatenate(
-                    [perm_n, np.arange(n, B, dtype=np.int64)])
+            ck, cp, rc, perm_n = native.core_match_block(
+                block.seq, block.lengths, block.exc_pos, n, cfg.core_k,
+                cfg.dict_seed)
+            perm_np = follow if follow is not None else np.concatenate(
+                [perm_n, np.arange(n, B, dtype=np.int64)])
+            order_n = perm_np[:n]
             ck_s = ck[order_n]
             cp_s = cp[order_n]
             rc_s = rc[order_n]
@@ -671,7 +630,7 @@ class BlockEncoder:
             len_s[:n] = len_n
         with stage("host delta"):
             codes_s = native.gather_orient(block.seq, order_n, rc_s, len_n)
-            if mate2:                      # cores NOT contiguous runs
+            if follow is not None:         # cores NOT contiguous runs
                 mask_bits, shifts, pred_k, lits = native.delta_match(
                     codes_s, ck_s, cp_s, len_n, _DELTA_K)
             else:
@@ -704,15 +663,14 @@ class BlockEncoder:
         return np.arange(n, dtype=np.int64)
 
     def _assemble_long(self, block: ReadBlock,
-                       order_n: Optional[np.ndarray] = None
-                       ) -> EncodedBlock:
+                       follow: Optional[np.ndarray] = None):
         """Long-read assembly (the reference's, container v7): reads
         sorted by their global minimizer, so that overlapping reads are
         neighbours; each read's ``nseg`` equal segments copy from the
         predecessor at the shift of a segment minimizer the two share
         (else the global minimizers' shift), and a segment matching
         under 50% of its cells falls back to literals with shift 0.
-        ``order_n``: mate 1's order (a pair's mate 2 follows it).  The
+        ``follow``: mate 1's order (a pair's mate 2 follows it).  The
         ``[n, L]`` int64 temporaries keep the reference's formulation:
         the bytes depend on it."""
         B, L = block.seq.shape
@@ -722,8 +680,8 @@ class BlockEncoder:
             med = int(np.median(len_n0)) if n else 0
             nseg = 1 << max(2, min(8, (med // _LONG_SEG_LEN).bit_length()))
             h, mp = minimizer_keys(block.seq[:n], len_n0)
-            if order_n is None:
-                order_n = self._long_order(block, h, mp)
+            order_n = self._long_order(block, h, mp) if follow is None \
+                else follow[:n]
         with stage("long delta"):
             codes_s = block.seq[:n][order_n]
             len_n = len_n0[order_n]
@@ -794,11 +752,12 @@ class BlockEncoder:
 
     def _assemble(self, block: ReadBlock, perm_np: np.ndarray,
                   len_np: np.ndarray, delta_np: Dict,
-                  enc_q=None) -> EncodedBlock:
+                  enc_q=None) -> Tuple[EncodedBlock, np.ndarray]:
         """Payload bytes of one block from its permutation, sorted
         lengths and delta products (``"lits"`` bytes from the host
         match, or the device's literal words), and its encoded qualities
-        (None: the host codec encodes them here)."""
+        (None: the host codec encodes them here) -> ``(payloads,
+        perm_np)``, the permutation a later mate follows."""
         cfg = self.cfg
         B, L = block.seq.shape
         timing.count("literals", delta_np["n_lits"])
@@ -830,10 +789,7 @@ class BlockEncoder:
         with stage("names payload"):
             n_payload = self._encode_names(block)
         return EncodedBlock(block.block_id, block.n_reads, {
-            "n": n_payload, "r": r_payload, "q": q_payload})
-
-    def encode_block(self, block: ReadBlock) -> EncodedBlock:
-        return self.assemble(block, self.dispatch(block))
+            "n": n_payload, "r": r_payload, "q": q_payload}), perm_np
 
     def _encode_names(self, block: ReadBlock) -> bytes:
         """Names stay in original order (copy of the reference's)."""

@@ -14,6 +14,11 @@ kernel, copy and memset a card ran is given to the innermost stage
 around the host call that queued it (:func:`device_time_by_stage`), per
 card too (:func:`device_time_by_card`), and :func:`counters` returns the
 counters and that device time.
+
+:func:`device_busy` runs a call under its own ``torch.profiler`` and
+gives the card's busy seconds (:func:`union_s`) and its device seconds
+by kind (:func:`device_event_kind`: the port's kernels K1-K8 by their
+CUDA names, :data:`PORT_KERNELS`, the copies, the other torch kernels).
 """
 
 from __future__ import annotations
@@ -25,7 +30,9 @@ import itertools
 import json
 import os
 import threading
-from typing import Dict, Iterable, Iterator, Mapping, Optional, Tuple
+import time
+from typing import (Callable, Dict, Iterable, Iterator, List, Mapping,
+                    Optional, Tuple)
 
 import torch
 
@@ -44,6 +51,12 @@ _last: Dict = {}
 
 #: the device time of launches outside every stage
 NO_STAGE = "no stage"
+#: the port's hand-written kernels, by their CUDA function names (K7:
+#: its match and literal-placement kernels)
+PORT_KERNELS = {"K1": "core_rank_kernel", "K2": "hist_ctx_kernel",
+                "K3": "rans_encode_kernel", "K4": "rans_decode_kernel",
+                "K5": "rans_encode_flat_kernel", "K6": "histogram_kernel",
+                "K7": "delta_seq_", "K8": "compact_kernel"}
 
 
 @contextlib.contextmanager
@@ -232,3 +245,59 @@ def profile(trace_dir: Optional[str], device,
         if write_counters:
             with open(base + ".counters.json", "w") as f:
                 json.dump(_last, f, indent=1, sort_keys=True)
+
+
+def union_s(spans: List[Tuple[float, float]]) -> float:
+    """Total length in seconds of the union of (start_us, end_us) spans."""
+    total, end = 0.0, None
+    for s, e in sorted(spans):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total / 1e6
+
+
+def device_event_kind(name: str) -> str:
+    """Device event -> one of K1-K8, ``pageable copies`` (to or from
+    pageable host memory), ``pinned copies`` (page-locked), ``other
+    copies`` (device to device, memsets) or ``torch kernels``."""
+    for k, fn in PORT_KERNELS.items():
+        if fn in name:
+            return k
+    if name.startswith(("Memcpy", "Memset")):
+        return "pageable copies" if "Pageable" in name else \
+            "pinned copies" if "Pinned" in name else "other copies"
+    return "torch kernels"
+
+
+def device_busy(fn: Callable[[], object]) -> Optional[Dict]:
+    """Run ``fn()`` under ``torch.profiler``: its wall seconds, the
+    device's busy seconds (the union of the device events' intervals),
+    and device seconds by kind (:func:`device_event_kind`) and by event
+    name (the 12 largest, names cut to 80 characters); None if no device
+    event was recorded."""
+    from torch import profiler
+    activities = [profiler.ProfilerActivity.CPU,
+                  profiler.ProfilerActivity.CUDA]
+    with profiler.profile(activities=activities, acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    spans, per_name, per_kind = [], {}, {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        s, e = ev.time_range.start, ev.time_range.end
+        spans.append((s, e))
+        name, kind = ev.name[:80], device_event_kind(ev.name)
+        per_name[name] = per_name.get(name, 0.0) + (e - s) / 1e6
+        per_kind[kind] = per_kind.get(kind, 0.0) + (e - s) / 1e6
+    if not spans:
+        return None
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"wall_s": wall, "busy_s": union_s(spans),
+            "device_events": len(spans), "by_kind_s": per_kind,
+            "top_device_s": dict(top)}

@@ -489,9 +489,10 @@ def test_card_data_parallel_matches_cpu(cuda, tmp_path):
     blocks = list(fastq.iter_blocks(src, 256, 128))
     senc = mesh.ShardedEncoder(cfg, "cuda", group=2)
     got = []
-    for i in range(0, len(blocks), senc.D):
-        got += senc.encode_blocks(blocks[i:i + senc.D])
-    want = [BlockEncoder(cfg, "cpu").encode_block(b) for b in blocks]
+    items = [(b,) for b in blocks]
+    for i in range(0, len(items), senc.D):
+        got += [eb for eb, in senc.encode(items[i:i + senc.D])]
+    want = [eb for eb, in BlockEncoder(cfg, "cpu").encode(items)]
     assert [g.payloads for g in got] == [w.payloads for w in want]
     outs = {}
     for dev, dp in (("cpu", False), ("cuda", True)):
@@ -722,13 +723,13 @@ def test_card_transfers_are_page_locked(cuda, tmp_path):
                               max_read_len=128, core_on_device=True,
                               delta_on_device=True, qual_on_device=True,
                               qual_context_order=1), cuda)
-    staged = enc.upload(block)
-    assert set(staged.host) == {"seq", "len", "exc", "qual"}
-    assert all(h.is_pinned() for h in staged.host.values())
-    fetched = enc.dispatch(block, staged).wait()
+    staged = enc.upload([(block,)])
+    assert set(staged[0][0].host) == {"seq", "len", "exc", "qual"}
+    assert all(h.is_pinned() for h in staged[0][0].host.values())
+    fetched = enc.dispatch([(block,)], staged)[0][0].wait()
     assert {"perm", "lit_packed", "packed", "wcounts"} <= set(fetched)
     assert all(torch.from_numpy(a).is_pinned() for a in fetched.values())
-    eb = enc.assemble(block, enc.dispatch(block))
+    ((eb,),) = enc.encode([(block,)])
     enc_q = qualities.parse(eb.payloads["q"])
     grid = qualities.decode_batch_dispatch([enc_q], [fetched["len_s"]],
                                            enc.link).wait()["qual"]
@@ -993,7 +994,7 @@ def test_card_profile_names_kernels_and_stages(cuda, tmp_path):
     one, and the trace holds K1-K3's kernels and the stage spans."""
     import glob
     import json
-    from scalce_tpu_torch import cli, stage_profile
+    from scalce_tpu_torch import cli, timing
     paths, _ = _pipeline_inputs(tmp_path, False)
     argv = [*paths, "--block-reads", "256", "--max-read-len", "128",
             "--qual-device", "--qual-order", "1", "-c", "gz", "-T", "2"]
@@ -1007,7 +1008,7 @@ def test_card_profile_names_kernels_and_stages(cuda, tmp_path):
     (trace,) = glob.glob(str(tmp_path / "t" / "*.trace.json"))
     with open(trace) as f:
         events = json.load(f)["traceEvents"]
-    kinds = {stage_profile._kind(e["name"]) for e in events
+    kinds = {timing.device_event_kind(e["name"]) for e in events
              if e.get("cat") == "kernel"}
     spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
     assert {"K1", "K2", "K3", "K7", "K8"} <= kinds

@@ -205,9 +205,10 @@ def test_data_parallel_host_qualities_match_single_device(tmp_path,
                                group=2, qual_map=qmap)
     ref = ref_mesh.ShardedEncoder(RefConfig(inputs=(src,), **kw), qmap,
                                   mesh=ref_mesh.local_mesh(2), group=2)
-    got = senc.encode_blocks(blocks[:4]) + senc.encode_blocks(blocks[4:])
+    items = [(b,) for b in blocks]
+    got = [eb for eb, in senc.encode(items[:4]) + senc.encode(items[4:])]
     want = ref.encode_blocks(blocks[:4]) + ref.encode_blocks(blocks[4:])
-    single = [BlockEncoder(cfg, "cpu", qmap).encode_block(b) for b in blocks]
+    single = [eb for eb, in BlockEncoder(cfg, "cpu", qmap).encode(items)]
     for g, w, s in zip(got, want, single):
         assert g.payloads == w.payloads == s.payloads
     outs = {}

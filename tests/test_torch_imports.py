@@ -73,17 +73,11 @@ def test_import_walk_sees_a_reference_import(tmp_path):
     assert sorted(_imports_of_reference(str(src))) == [1, 2, 4, 6, 7]
 
 
-@pytest.mark.parametrize("entry", ["cli", "stage_profile"])
+@pytest.mark.parametrize("entry", ["cli"])
 def test_entry_points_default_to_the_card(entry):
-    """The port's entry points run on the card unless the caller asks
-    for the CPU: the CLI's ``--device`` and ``stage_profile.profile``."""
-    if entry == "cli":
-        device = cli.build_parser().parse_args(["in.fastq"]).device
-    else:
-        import inspect
-        from scalce_tpu_torch import stage_profile
-        device = inspect.signature(stage_profile.profile).parameters[
-            "device"].default
+    """The port's entry point runs on the card unless the caller asks
+    for the CPU: the CLI's ``--device``."""
+    device = cli.build_parser().parse_args(["in.fastq"]).device
     assert device == "cuda"
 
 

@@ -135,7 +135,7 @@ def test_indel_reads_re_anchor(files):
     path = files["indel"]
     block = next(fastq.iter_blocks(path, BASE["block_reads"], L))
     enc = encode.BlockEncoder(Config(inputs=(path,), **BASE), "cpu")
-    eb = enc._assemble_long(block)
+    eb, _ = enc._assemble_long(block)
     fields = seqs.parse_fields(eb.payloads["r"], BASE["block_reads"], L)[0]
     sh = fields["shifts"]
     assert sh.ndim == 2 and sh.shape[1] >= 4
@@ -151,7 +151,7 @@ def test_no_overlap_and_identity_order(files):
     path = files["no overlap"]
     block = next(fastq.iter_blocks(path, BASE["block_reads"], L))
     enc = encode.BlockEncoder(Config(inputs=(path,), **BASE), "cpu")
-    fields = seqs.parse_fields(enc._assemble_long(block).payloads["r"],
+    fields = seqs.parse_fields(enc._assemble_long(block)[0].payloads["r"],
                                BASE["block_reads"], L)[0]
     assert len(fields["lits"]) == int(block.lengths[:block.n_reads].sum())
     assert enc._long_order(block).tolist() != list(range(block.n_reads))
@@ -260,10 +260,12 @@ def test_long_mode_touches_no_device(files):
     assert enc.qual_map is None and enc.rank_lut_np is None
     assert enc.placement == "host"
     block = next(fastq.iter_blocks(files["sub"], 256, L))
-    assert enc.upload(block) is None and enc.dispatch(block) is encode.LONG
-    assert enc.dispatch_pair(block, block) == [encode.LONG, encode.LONG]
-    devices, D, upload, *_, placement = driver._encoder(cfg, "cpu", None)
-    assert devices == [] and upload is None and placement == "host"
+    assert enc.upload([(block,)]) is None
+    assert enc.dispatch([(block,)]) == [[encode.LONG]]
+    assert enc.dispatch([(block, block)]) == [[encode.LONG, encode.LONG]]
+    run = driver._encoder(cfg, "cpu", None)
+    assert run.devices == [] and run.D == 1 and run.on_host
+    assert run.placement == "host"
     meta = {"block_reads": 256, "max_read_len": L}
     with pytest.raises(ValueError, match="long-read"):
         BlockDecoder(meta, "cpu", delta_on_device=True)

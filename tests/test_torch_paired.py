@@ -21,6 +21,7 @@ from scalce_tpu.config import Config as RefConfig
 from scalce_tpu.io import fastq
 from scalce_tpu.models import lossy as ref_lossy
 from scalce_tpu.parallel import mesh as ref_mesh
+from scalce_tpu.pipeline import encode as ref_encode
 from scalce_tpu.utils.synth import synth_pair
 from scalce_tpu_torch import timing
 from scalce_tpu_torch.config import Config
@@ -39,6 +40,15 @@ SLICE = dict(block_reads=1024, max_read_len=128, qual_T_target=2048,
 
 #: name -> synth_pair arguments
 CASES = {"uniform": {}, "ragged": dict(var_len=True, n_rate=0.01)}
+
+#: the bare command's qualities: the host codec, each block at the order
+#: its trial picks
+_HOST_Q = dict(qual_on_device=False, qual_context_order=0)
+#: placement -> Config fields on top of SLICE
+PLACEMENTS = {"device qualities": {}, "host qualities": _HOST_Q,
+              "host delta": dict(_HOST_Q, delta_on_device=False),
+              "host core": dict(_HOST_Q, delta_on_device=False,
+                                core_on_device=False)}
 
 
 def _triplets(prefix):
@@ -124,17 +134,53 @@ def test_sharded_encoder_pairs_match_reference_and_single_device(pair):
                   **{**SLICE, "block_reads": 512}),
         ref_lossy.identity_map(), mesh=ref_mesh.local_mesh(2), group=2)
     assert senc.D == ref.D == 4
-    got = senc.encode_block_pairs(pairs[:4]) + senc.encode_block_pairs(
-        pairs[4:])
+    got = senc.encode(pairs[:4]) + senc.encode(pairs[4:])
     want = ref.encode_block_pairs(pairs[:4]) + ref.encode_block_pairs(
         pairs[4:])
-    enc = BlockEncoder(cfg, "cpu")
-    single = [enc.encode_block_pair(*p) for p in pairs]
+    single = BlockEncoder(cfg, "cpu").encode(pairs)
     assert len(got) == len(want) == len(single) == 5
     for g, w, s in zip(got, want, single):
         for mate in (0, 1):
             assert g[mate].block_id == w[mate].block_id == s[mate].block_id
             assert g[mate].payloads == w[mate].payloads == s[mate].payloads
+
+
+@pytest.fixture(scope="module")
+def mates(tmp_path_factory):
+    """One 1,024-read block a mate (ragged reads with N bases): the
+    mates' paths and the pair of blocks."""
+    d = str(tmp_path_factory.mktemp("mates"))
+    paths = (os.path.join(d, "a.fastq"), os.path.join(d, "b.fastq"))
+    for p, data in zip(paths, synth_pair(1024, 100, seed=37,
+                                         genome_len=50_000, var_len=True,
+                                         n_rate=0.01)):
+        with open(p, "wb") as f:
+            f.write(data)
+    (item,) = fastq.iter_paired_blocks(*paths, 1024, 128)
+    return paths, item
+
+
+@pytest.mark.parametrize("n_mates", [1, 2])
+@pytest.mark.parametrize("placement", list(PLACEMENTS))
+def test_mates_follow_mate_one(mates, placement, n_mates):
+    """The port's whole-item encode of one mate, or of a pair (mate 1
+    sorts, mate 2 follows its permutation), under each placement equals
+    the reference's ``encode_block`` or ``encode_block_pair``."""
+    paths, pair = mates
+    item = pair[:n_mates]
+    kw = dict(inputs=paths[:n_mates], paired=n_mates == 2,
+              **{**SLICE, **PLACEMENTS[placement]})
+    enc = BlockEncoder(Config(**kw), "cpu")
+    assert enc.placement == ("host" if placement == "host core"
+                             else "device")
+    ref = ref_encode.BlockEncoder(RefConfig(**kw))
+    want = ref.encode_block_pair(*item) if n_mates == 2 \
+        else (ref.encode_block(*item),)
+    (got,) = enc.encode([item])
+    assert len(got) == len(want) == n_mates
+    for g, w in zip(got, want):
+        assert g.block_id == w.block_id and g.n_reads == w.n_reads
+        assert g.payloads == w.payloads
 
 
 @pytest.fixture(scope="module")

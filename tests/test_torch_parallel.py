@@ -67,9 +67,10 @@ def test_sharded_encoder_matches_reference_and_single_device(fastq_file):
     ref = ref_mesh.ShardedEncoder(fastq_file["ref_cfg"], lossy.identity_map(),
                                   mesh=ref_mesh.local_mesh(2), group=2)
     assert senc.D == ref.D == 4
-    got = senc.encode_blocks(blocks[:4]) + senc.encode_blocks(blocks[4:])
+    items = [(b,) for b in blocks]
+    got = [eb for eb, in senc.encode(items[:4]) + senc.encode(items[4:])]
     want = ref.encode_blocks(blocks[:4]) + ref.encode_blocks(blocks[4:])
-    single = [BlockEncoder(cfg, "cpu").encode_block(b) for b in blocks]
+    single = [eb for eb, in BlockEncoder(cfg, "cpu").encode(items)]
     for g, w, s in zip(got, want, single):
         assert g.block_id == w.block_id == s.block_id
         assert g.payloads == w.payloads == s.payloads

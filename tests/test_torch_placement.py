@@ -65,14 +65,13 @@ def files(tmp_path_factory):
 
 class _Spy:
     """Counts the calls of the functions that tell the placements apart:
-    the device delta (``_delta_seq``), the host-delta stage A, and the
-    native core matcher and delta matches."""
+    the device delta (``_delta_seq``), the host-delta stage A (once a
+    mate), and the native core matcher and delta matches."""
 
     def __init__(self, monkeypatch):
         self.calls = {}
         for mod, name in ((encode, "_delta_seq"),
-                          (encode, "_device_stage_a_hd"),
-                          (encode, "_device_stage_a2_hd"),
+                          (encode, "stage_a_hd"),
                           (native, "core_match_block"),
                           (native, "delta_match_runs"),
                           (native, "delta_match")):
@@ -119,27 +118,29 @@ CASES = {
     "host core": ("single", HOST_CORE, None, "host",
                   dict(core_match_block=1, delta_match_runs=1)),
     "host delta": ("single", HOST_DELTA, None, "device",
-                   dict(_device_stage_a_hd=1, delta_match_runs=1)),
+                   dict(stage_a_hd=1, delta_match_runs=1)),
     "auto, slow link": ("single", AUTO, 30.0, "host",
                         dict(core_match_block=1, delta_match_runs=1)),
     "auto, fast link": ("single", AUTO, 5000.0, "device",
-                        dict(_device_stage_a_hd=1, delta_match_runs=1)),
+                        dict(stage_a_hd=1, delta_match_runs=1)),
     "host core, pair": ("pair", HOST_CORE, None, "host",
                         dict(core_match_block=2, delta_match_runs=1,
                              delta_match=1)),
     "host delta, pair": ("pair", HOST_DELTA, None, "device",
-                         dict(_device_stage_a_hd=1, _device_stage_a2_hd=1,
-                              delta_match_runs=1, delta_match=1)),
+                         dict(stage_a_hd=2, delta_match_runs=1,
+                              delta_match=1)),
     "auto, slow link, pair": ("pair", AUTO, 30.0, "host",
                               dict(core_match_block=2, delta_match_runs=1,
                                    delta_match=1)),
+    "auto, fast link, pair": ("pair", AUTO, 5000.0, "device",
+                              dict(stage_a_hd=2, delta_match_runs=1,
+                                   delta_match=1)),
     "host delta, --data-parallel": (
         "single", dict(HOST_DELTA, data_parallel=True), None, "device",
-        dict(_device_stage_a_hd=1, delta_match_runs=1)),
+        dict(stage_a_hd=1, delta_match_runs=1)),
     "host delta, --data-parallel pair": (
         "pair", dict(HOST_DELTA, data_parallel=True), None, "device",
-        dict(_device_stage_a_hd=1, _device_stage_a2_hd=1,
-             delta_match_runs=1, delta_match=1)),
+        dict(stage_a_hd=2, delta_match_runs=1, delta_match=1)),
 }
 
 
@@ -173,10 +174,10 @@ def test_host_core_encoder_touches_no_device(files):
     assert enc.link is None and enc.rank_lut is None
     from scalce_tpu_torch.io import fastq
     block = next(iter(fastq.iter_blocks(files["single"][0], 1024, 128)))
-    assert enc.upload(block) is None
-    assert enc.dispatch(block) == encode.HOST_CORE
+    assert enc.upload([(block,)]) is None
+    assert enc.dispatch([(block,)]) == [[encode.HOST_CORE]]
     assert driver._encoder(Config(inputs=files["single"], **BASE,
-                                  **HOST_CORE), "cpu", None)[2] is None
+                                  **HOST_CORE), "cpu", None).on_host
 
 
 def _hd_arrays(seed, B=300):
@@ -206,11 +207,13 @@ def test_hd_pack_and_unpack_match_reference(mate, seed):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
     B = a["len_s"].shape[0]
+    # a later mate's buffer carries no permutation: it follows mate 1's
+    follow = None if mate == 1 else a["perm"].astype(np.int64)
     for g, w in zip(encode._hd_unpack(got.numpy().view(np.uint32), B,
-                                      mate == 1),
+                                      follow),
                     ref_encode._hd_unpack(want, B, mate == 1)):
         if w is None:
-            assert g is None
+            assert g is follow
         else:
             assert g.dtype == w.dtype
             np.testing.assert_array_equal(g, w)

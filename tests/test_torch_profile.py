@@ -3,7 +3,8 @@ under ``--profile DIR`` a torch.profiler trace names every stage and
 every wait of the compress and decompress paths, on every thread that
 runs them, the link's bytes and the delta's literals are counted, the
 card's time is given to the stage that queued it, and no byte of the
-triplet changes.  The profile script accounts for each run's walls."""
+triplet changes; the device-busy helpers split a card's events by
+kind."""
 
 import glob
 import json
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from scalce_tpu_torch import cli, container, stage_profile, timing
+from scalce_tpu_torch import cli, container, timing
 from scalce_tpu_torch.config import Config
 from scalce_tpu_torch.pipeline import driver
 from scalce_tpu_torch.streams import seqs
@@ -29,37 +30,6 @@ COMPRESS_WAITS = {"wait input", "wait assemble", "wait download"}
 DECOMPRESS_WAITS = {"wait parse", "wait finish"}
 
 
-def test_stage_profile_cpu(capsys):
-    result = stage_profile.profile("cpu", reads=1500, block_reads=1024)
-    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
-        == result
-    assert set(result["cases"]) == set(stage_profile.CASES)
-    assert "dp_functions_ms" not in result       # timed on a card only
-    for case, res in result["cases"].items():
-        assert res["input_bytes"] > 0 and "profiled" not in res
-        for name in ("compress", "decompress"):
-            for run in ("untimed", "untimed_T4", "untimed_Tdef"):
-                assert res[run][name]["wall_s"] > 0
-    assert result["cases"]["paired"]["input_bytes"] \
-        > result["cases"]["single"]["input_bytes"]
-
-
-@pytest.mark.parametrize("lossy,got,ok", [
-    (False, b"@a\nACGT\n+\nIIII\n", True),
-    (False, b"@a\nACGT\n+\nIIIH\n", False),
-    (True, b"@a\nACGT\n+\n5555\n", True),
-    (True, b"@a\nACGA\n+\nIIII\n", False),
-    (True, b"@a\nACGT\n+\nIII\n", False),
-])
-def test_profile_checks_the_decompress(lossy, got, ok):
-    want = b"@a\nACGT\n+\nIIII\n"
-    if ok:
-        stage_profile._check(got, want, lossy)
-    else:
-        with pytest.raises(AssertionError):
-            stage_profile._check(got, want, lossy)
-
-
 @pytest.mark.parametrize("spans,want", [
     ([], 0.0),
     ([(0, 10)], 10e-6),
@@ -67,7 +37,7 @@ def test_profile_checks_the_decompress(lossy, got, ok):
     ([(30, 40), (0, 10), (2, 3)], 20e-6),
 ])
 def test_union_of_device_spans(spans, want):
-    assert stage_profile._union_s(spans) == pytest.approx(want)
+    assert timing.union_s(spans) == pytest.approx(want)
 
 
 @pytest.mark.parametrize("name,kind", [
@@ -93,7 +63,16 @@ def test_union_of_device_spans(spans, want):
      "torch kernels"),
 ])
 def test_device_event_kinds(name, kind):
-    assert stage_profile._kind(name) == kind
+    assert timing.device_event_kind(name) == kind
+
+
+def test_device_busy_without_device_events_is_none():
+    """A call that queues nothing on a card runs once under
+    ``timing.device_busy``, which then reports no busy time at all."""
+    ran = []
+    assert timing.device_busy(lambda: ran.append(torch.ones(4).sum())) \
+        is None
+    assert len(ran) == 1
 
 
 def _spans(trace_dir):

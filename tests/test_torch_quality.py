@@ -213,8 +213,8 @@ def test_seqs_payload_parse_match_reference(native, tmp_path, monkeypatch):
     cfg = Config(inputs=(path,), block_reads=B, max_read_len=L,
                  core_on_device=True, delta_on_device=True,
                  qual_on_device=True, qual_context_order=1)
-    perm, delta, len_s, *_ = encode.BlockEncoder(cfg, "cpu").encode_device(
-        block)
+    (perm, delta, len_s, *_), = encode.BlockEncoder(
+        cfg, "cpu").encode_device((block,))
     delta_np = encode.download_delta(delta)
     args = (delta_np, len_s.numpy(), block.n_reads, block.exc_pos,
             block.exc_byte, perm.numpy())
