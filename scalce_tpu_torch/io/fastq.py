@@ -1,4 +1,5 @@
-# Copy of scalce_tpu/io/fastq.py (only the imports differ).
+# Copy of scalce_tpu/io/fastq.py (the imports differ, and ragged_scatter's native
+# row copy takes rows of any dtype).
 """Chunked, vectorized FASTQ parsing into fixed-shape device blocks.
 
 The reference parses FASTQ one record at a time in a scalar C loop
@@ -66,20 +67,29 @@ def ragged_gather(buf: np.ndarray, starts: np.ndarray,
 
 
 def ragged_scatter(dst: np.ndarray, dst_starts: np.ndarray,
-                   src_cat: np.ndarray, lens: np.ndarray) -> None:
-    """Inverse of :func:`ragged_gather`: write concatenated rows into dst."""
+                   src_cat: np.ndarray, lens: np.ndarray) -> bool:
+    """Inverse of :func:`ragged_gather`: write concatenated rows into dst.
+
+    Where dst is C-contiguous and shares src_cat's dtype, the native row
+    copy moves the rows' bytes (starts and lengths times the itemsize);
+    else NumPy index arrays place them.  Returns whether the native copy
+    took the rows."""
+    native = (_NATIVE and dst.flags.c_contiguous
+              and dst.dtype == src_cat.dtype and not dst.dtype.hasobject)
     total = int(lens.sum())
     if total == 0:
-        return
-    if (_NATIVE and dst.dtype == np.uint8 and dst.flags.c_contiguous
-            and src_cat.dtype == np.uint8):
-        _native.ragged_scatter_u8(dst, dst_starts.astype(np.int64),
-                                  np.ascontiguousarray(src_cat),
-                                  lens.astype(np.int64))
-        return
+        return native
+    if native:
+        k = dst.itemsize
+        _native.ragged_scatter_u8(
+            dst.reshape(-1).view(np.uint8), dst_starts.astype(np.int64) * k,
+            np.ascontiguousarray(src_cat).view(np.uint8),
+            lens.astype(np.int64) * k)
+        return True
     off = np.concatenate(([0], np.cumsum(lens)[:-1]))
     idx = np.repeat(dst_starts - off, lens) + np.arange(total, dtype=np.int64)
     dst[idx] = src_cat
+    return False
 
 
 def lens_to_offsets(lens: np.ndarray) -> np.ndarray:

@@ -37,7 +37,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from scalce_tpu_torch import container, convert
+from scalce_tpu_torch import container, convert, timing
 from scalce_tpu_torch.device import resolve_device
 from scalce_tpu_torch.io.fastq import ragged_gather, ragged_scatter
 from scalce_tpu_torch.models import entropy
@@ -297,7 +297,9 @@ def decode_inputs_host(encs: List[EncodedQuals], lengths_list
     ``[D, N]``, words ``[D, N, W]`` (u16 bits in int16, half the bytes
     to upload of the int32 widening; W = the widest power-of-two bucket of
     the group, floored at max(64, T/8)), freq ``[D, C, 94]``, lengths
-    ``[D, B]``.  Blocks must share (B, L, T, order)."""
+    ``[D, B]``.  Blocks must share (B, L, T, order).  Counts each block
+    (``k4_input_blocks``) and each whose words took the native row copy
+    (``k4_input_native_blocks``)."""
     if len({(e.B, e.L, e.T, e.order) for e in encs}) != 1:
         raise ValueError("decode_batch requires uniform (B, L, T, order)")
     e0 = encs[0]
@@ -308,8 +310,11 @@ def decode_inputs_host(encs: List[EncodedQuals], lengths_list
         W <<= 1
     words = np.zeros((len(encs), N, W), np.uint16)
     for d, e in enumerate(encs):
-        ragged_scatter(words[d].reshape(-1), np.arange(N, dtype=np.int64) * W,
-                       e.words, e.counts.astype(np.int64))
+        native = ragged_scatter(words[d].reshape(-1),
+                                np.arange(N, dtype=np.int64) * W, e.words,
+                                e.counts.astype(np.int64))
+        timing.count("k4_input_blocks", 1)
+        timing.count("k4_input_native_blocks", native)
     return {
         "states": np.stack([e.states for e in encs]),
         "words": words.view(np.int16),
@@ -334,7 +339,9 @@ def decode_batch_dispatch(encs: List[EncodedQuals], lengths_list,
     with :func:`decode_batch_fetch`, which a host worker may run while
     the caller launches the next group."""
     e0 = encs[0]
-    x = link.upload(decode_inputs_host(encs, lengths_list)).wait()
+    with timing.stage("K4 inputs"):
+        host = decode_inputs_host(encs, lengths_list)
+    x = link.upload(host).wait()
     qual = decode_quals(x["states"], x["words"], x["freq"], x["lengths"],
                         e0.order, e0.T, e0.L)
     return link.download({"qual": qual.reshape(len(encs), e0.B, e0.L)})[0]
