@@ -305,21 +305,23 @@ def device_link_mbps(device) -> float:
     """The link to ``device`` in MB/s, measured once per device and
     cached: a 4 MB round trip (upload, then download) through
     :class:`~scalce_tpu_torch.transfer.Link`'s page-locked staging,
-    timed after one untimed round trip.  Drives the AUTO core placement.
-    A probe that fails raises; the bytes must come back unchanged."""
+    timed after one untimed round trip, under the span ``link probe``.
+    Drives the AUTO core placement.  A probe that fails raises; the
+    bytes must come back unchanged."""
     device = resolve_device(device)
     with _LINK_LOCK:
         if device not in _LINK_MBPS:
-            link = Link(device)
-            payload = np.arange(_PROBE_BYTES, dtype=np.uint8)
+            with stage("link probe"):
+                link = Link(device)
+                payload = np.arange(_PROBE_BYTES, dtype=np.uint8)
 
-            def round_trip():
-                staged = link.upload({"x": payload}).wait()
-                return link.download({"x": staged["x"]})[0].wait()["x"]
-            round_trip()
-            t0 = time.perf_counter()
-            back = round_trip()
-            dt = time.perf_counter() - t0
+                def round_trip():
+                    staged = link.upload({"x": payload}).wait()
+                    return link.download({"x": staged["x"]})[0].wait()["x"]
+                round_trip()
+                t0 = time.perf_counter()
+                back = round_trip()
+                dt = time.perf_counter() - t0
             if not np.array_equal(back, payload):
                 raise RuntimeError(f"link probe on {device}: the round "
                                    "trip changed the bytes")
@@ -588,17 +590,23 @@ class BlockEncoder:
         """Host-delta assembly (the reference's): the downloaded packed
         buffer, then the native byte-compare match (bit-identical to
         ``_delta_seq``) on the rows ``gather_orient`` rebuilds: over
-        mate 1's sorted core runs, or a later mate's core ids."""
+        mate 1's sorted core runs, or a later mate's core ids.  Traced:
+        the span ``host delta`` holds ``gather orient`` and ``delta
+        match``, and the counter ``host_delta_blocks`` takes the block
+        (also under host core)."""
         B, L = block.seq.shape
         perm_np, key, cp, rc, len_s = _hd_unpack(buf, B, follow)
         n = block.n_reads
         match = native.delta_match_runs if follow is None \
             else native.delta_match
         with stage("host delta"):
-            codes_s = native.gather_orient(block.seq, perm_np[:n], rc[:n],
-                                           len_s[:n])
-            mask_bits, shifts, pred_k, lits = match(
-                codes_s, key[:n], cp[:n], len_s[:n], _DELTA_K)
+            with stage("gather orient"):
+                codes_s = native.gather_orient(block.seq, perm_np[:n],
+                                               rc[:n], len_s[:n])
+            with stage("delta match"):
+                mask_bits, shifts, pred_k, lits = match(
+                    codes_s, key[:n], cp[:n], len_s[:n], _DELTA_K)
+        timing.count("host_delta_blocks", 1)
         delta_np = {
             "mask_bits": mask_bits, "shifts": shifts, "pred_k": pred_k,
             "rc_bits": np.packbits(rc, bitorder="little"),
@@ -629,18 +637,24 @@ class BlockEncoder:
             len_s = np.zeros(B, np.int32)
             len_s[:n] = len_n
         with stage("host delta"):
-            codes_s = native.gather_orient(block.seq, order_n, rc_s, len_n)
-            if follow is not None:         # cores NOT contiguous runs
-                mask_bits, shifts, pred_k, lits = native.delta_match(
-                    codes_s, ck_s, cp_s, len_n, _DELTA_K)
-            else:
-                bnd = np.ones(n, np.uint8)
-                if n > 1:
-                    bnd[1:] = ((ck_s[1:] != ck_s[:-1])
-                               | (ck_s[1:] == np.uint32(core_match.NO_CORE))
-                               ).astype(np.uint8)
-                mask_bits, shifts, pred_k, lits = native.delta_match_runs(
-                    codes_s, bnd, cp_s, len_n, _DELTA_K)
+            with stage("gather orient"):
+                codes_s = native.gather_orient(block.seq, order_n, rc_s,
+                                               len_n)
+            with stage("delta match"):
+                if follow is not None:     # cores NOT contiguous runs
+                    mask_bits, shifts, pred_k, lits = native.delta_match(
+                        codes_s, ck_s, cp_s, len_n, _DELTA_K)
+                else:
+                    bnd = np.ones(n, np.uint8)
+                    if n > 1:
+                        bnd[1:] = ((ck_s[1:] != ck_s[:-1])
+                                   | (ck_s[1:]
+                                      == np.uint32(core_match.NO_CORE))
+                                   ).astype(np.uint8)
+                    mask_bits, shifts, pred_k, lits = \
+                        native.delta_match_runs(codes_s, bnd, cp_s, len_n,
+                                                _DELTA_K)
+        timing.count("host_delta_blocks", 1)
         rc_full = np.zeros(B, np.uint8)
         rc_full[:n] = rc_s
         delta_np = {

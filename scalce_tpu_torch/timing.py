@@ -3,7 +3,8 @@
 
 The pipeline wraps each stage, and each blocking wait of one thread on
 another (``wait ...``), in :func:`stage`, and counts what crosses the
-link and what the delta leaves as literals with :func:`count`.  Off (the
+link, what the delta leaves as literals and the blocks whose delta the
+host matched with :func:`count`.  Off (the
 default) a stage or a count costs one global check and adds no clock,
 lock, thread or device work.  Inside :func:`profile` each stage is a
 ``torch.profiler.record_function`` span of its name, on the thread that

@@ -185,7 +185,8 @@ def test_counters_only_inside_profile(tmp_path):
 @pytest.mark.parametrize("threads", [1, 3])
 def test_link_and_literal_counters(tmp_path, monkeypatch, threads):
     """Under a profile a compress counts the bytes of every array it
-    hands the link each way, and the literals its triplet holds."""
+    hands the link each way, the literals its triplet holds and, under
+    Config's default host delta, every block it matched on the host."""
     handed = {"h2d_bytes": 0, "d2h_bytes": 0}
     up, down = Link.upload, Link.download
 
@@ -216,10 +217,12 @@ def test_link_and_literal_counters(tmp_path, monkeypatch, threads):
     got = timing.counters()["compress"]
     reader = container.TripletReader(out + ".00.scalcen")
     B, L = (int(reader.meta[k]) for k in ("block_reads", "max_read_len"))
+    payloads = [p for _, p in reader.iter_blocks()]
     lits = sum(seqs.parse_fields(p["r"], B, L)[0]["lits"].size
-               for _, p in reader.iter_blocks())
+               for p in payloads)
     assert handed["h2d_bytes"] > 0 and handed["d2h_bytes"] > 0 and lits > 0
-    assert got == {**handed, "literals": lits}
+    assert got == {**handed, "literals": lits,
+                   "host_delta_blocks": len(payloads)}
 
 
 #: (spans (name, thread, start, end), launches {correlation: (thread,
